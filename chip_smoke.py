@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's x-vector extraction path on one NVIDIA GPU.
+"""Drive the PyTorch port's extraction and training paths on one NVIDIA GPU.
 
 Run from the repository root (one card, no arguments needed):
 
@@ -26,27 +26,50 @@ Phases; any failure raises and the exit code is non-zero:
 5. timing lines tagged with the card: extraction throughput of both runs,
    the serving metric on one full 32x1024 batch (fused and unfused), a
    profiler breakdown of the fused batch (per kernel, per K1 layer, device
-   idle share), and K1 at 32x1024 against its plain version and its bound.
+   idle share), and K1 at 32x1024 against its plain version and its bound;
+6. K2, K3 and K4 (the SAME conv forward, weight gradient and input
+   gradient) against their plain versions on the card: at the training
+   shapes (64x304, 512 -> 512, k=5 and k=7), at ragged shapes (B=6, T=301,
+   384 <-> 640 channels), dilated (k=3, d=2, 3, 4), and the autograd
+   Function's dx and dW against autograd through the plain forward;
+   bounds 1e-2 (bf16 outputs of K2 and K4, the Function's gradients) and
+   1e-3 (K3's f32 output), as max |kernel - plain| / max |plain|;
+7. the training path at full width (``no_dropout``, 7,185 classes, bf16,
+   blocks of 16, Adam): an XTA archive of 32 full 64x304 minibatches and
+   one ragged one written with ``write_archive``, read through
+   ``ArchiveReader`` -> ``PrefetchLoader`` into
+   ``Trainer.train_one_iteration`` twice (the main path: counts zeroed just
+   before, read just after; exactly 6 kernel calls per minibatch step, two
+   dense blocks and one single step per pass, a falling loss); then one
+   bf16 step fused against unfused (torch matmuls) from the same weights,
+   and one f32 block of ``tiny`` on the card against the CPU;
+8. timing lines tagged with the card: the block step fused and unfused
+   (ms per minibatch, audio-s/s), a profiler breakdown of one fused block,
+   and K2, K3 and K4 at k=5 and k=7 against their plain versions, their
+   bounds and the one PyTorch call that computes the same function.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full f32
-(``torch.backends.cuda.matmul.allow_tf32 = False``) so the plain version
-is a true f32 referee.
+(``torch.backends.cuda.matmul.allow_tf32 = False``) so the plain versions
+are true f32 referees.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 KERNEL_BOUND = 1e-2        # max |kernel - plain| / max |plain|
 COSINE_BOUND = 0.999       # fused vs unfused x-vectors, both bf16
@@ -56,6 +79,16 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 FRAMES_PER_SECOND = 100    # 10 ms frame shift
 EXTRACT_PAIRS = 5          # timed fused/unfused extraction pairs
+DW_BOUND = 1e-3            # K3's f32 output: only the f32 sum order differs
+# fused vs unfused bf16 train step from the same weights: the two round to
+# bf16 at other places (once per conv against once per tap), and train-mode
+# batch norm carries the difference into every gradient
+TRAIN_LOSS_BOUND = 1e-2    # relative loss difference
+TRAIN_COSINE_BOUND = 0.98  # per-parameter gradient cosine
+TRAIN_F32_BOUND = 1e-3     # f32 block on the card vs the CPU, per tensor
+TRAIN_B, TRAIN_T = 64, 304            # the recipe's minibatch (bench.py)
+TRAIN_FULL, TRAIN_RAGGED_LEN = 32, 250
+TRAIN_CLASSES = 7185
 
 
 def fail(msg: str):
@@ -381,6 +414,427 @@ def phase_k1_timing(tt, TK, dev, seed, tag):
             "bound_by": bound_by}
 
 
+# ---------------------------------------------------------------------------
+# training slice: K2, K3, K4 and the block train step
+# ---------------------------------------------------------------------------
+
+def norm_err(got, want):
+    """(max |got - want|, the same over max |want|)."""
+    abs_err = float((got.float() - want.float()).abs().max())
+    return abs_err, abs_err / float(want.float().abs().max())
+
+
+def conv_inputs(b, t, cin, cout, k, dev, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, t, cin, generator=gen).to(dev, torch.bfloat16)
+    w = (torch.randn(k, cin, cout, generator=gen) / math.sqrt(k * cin)).to(
+        dev, torch.bfloat16)
+    g = torch.randn(b, t, cout, generator=gen).to(dev, torch.bfloat16)
+    return x, w, g
+
+
+def phase_conv_checks(CB, dev, seed):
+    """K2, K3 and K4 against their plain versions; returns the largest
+    max-abs error of each at the training shapes."""
+    cases = [("train", 5, 1, TRAIN_B, TRAIN_T, 512, 512),
+             ("train", 7, 1, TRAIN_B, TRAIN_T, 512, 512),
+             ("ragged", 5, 1, 6, 301, 384, 640),
+             ("ragged", 7, 1, 6, 301, 640, 384),
+             ("dilated", 3, 2, 8, 300, 512, 512),
+             ("dilated", 3, 3, 8, 300, 512, 512),
+             ("dilated", 3, 4, 8, 300, 512, 512)]
+    train_err = {"fwd": 0.0, "dw": 0.0, "dx": 0.0}
+    for i, (kind, k, d, b, t, cin, cout) in enumerate(cases):
+        x, w, g = conv_inputs(b, t, cin, cout, k, dev, seed + 200 + i)
+        got = {"fwd": CB.conv_fwd(x, w, d), "dw": CB.conv_dw(x, g, k, d),
+               "dx": CB.conv_dx(g, w, d)}
+        torch.cuda.synchronize()
+        want = {"fwd": CB.conv_fwd_reference(x, w, d),
+                "dw": CB.conv_dw_reference(x, g, k, d),
+                "dx": CB.conv_dx_reference(g, w, d)}
+        shapes = {"fwd": ((b, t, cout), torch.bfloat16),
+                  "dw": ((k, cin, cout), torch.float32),
+                  "dx": ((b, t, cin), torch.bfloat16)}
+        for name in ("fwd", "dw", "dx"):
+            label = f"conv {name} {kind} k={k} d={d} {b}x{t} {cin}->{cout}"
+            if (tuple(got[name].shape), got[name].dtype) != shapes[name]:
+                fail(f"{label}: shape/dtype {tuple(got[name].shape)} "
+                     f"{got[name].dtype}, expected {shapes[name]}")
+            if not torch.isfinite(got[name]).all():
+                fail(f"{label}: non-finite output")
+            bound = DW_BOUND if name == "dw" else KERNEL_BOUND
+            abs_err, err = norm_err(got[name], want[name])
+            print(f"{label}: max_abs_err={abs_err:.6g} normalised={err:.3g} "
+                  f"(bound {bound})")
+            if err > bound:
+                fail(f"{label} disagrees with its plain version")
+            if kind == "train":
+                train_err[name] = max(train_err[name], abs_err)
+
+    # the autograd Function against autograd through the plain forward
+    k = 5
+    x, w, g = conv_inputs(TRAIN_B, TRAIN_T, 512, 512, k, dev, seed + 300)
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    CB.conv1d_same_fused_bwd(xs, ws, 1).backward(g)
+    xr, wr = x.float().requires_grad_(True), w.float().requires_grad_(True)
+    CB.conv_fwd_reference(xr, wr, 1).backward(g.float())
+    torch.cuda.synchronize()
+    for name, a, b in (("dx", xs.grad, xr.grad), ("dW", ws.grad, wr.grad)):
+        abs_err, err = norm_err(a, b)
+        print(f"conv Function {name} k={k} {TRAIN_B}x{TRAIN_T} vs autograd "
+              f"of the plain forward: max_abs_err={abs_err:.6g} "
+              f"normalised={err:.3g} (bound {KERNEL_BOUND})")
+        if a.dtype != torch.bfloat16 or err > KERNEL_BOUND:
+            fail(f"conv Function {name} disagrees with autograd")
+    return train_err
+
+
+def write_train_archive(TA, path, seed, feat_dim):
+    """TRAIN_FULL full minibatches and one ragged one (true length
+    TRAIN_RAGGED_LEN, last).  Each speaker has its own mean feature
+    vector, so the labels can be learnt."""
+    rng = np.random.default_rng(seed)
+    means = rng.standard_normal((TRAIN_CLASSES, feat_dim), dtype=np.float32)
+    mbs = []
+    for i in range(TRAIN_FULL + 1):
+        labels = rng.integers(0, TRAIN_CLASSES, TRAIN_B, dtype=np.int32)
+        feats = (means[labels][:, None, :] + rng.standard_normal(
+            (TRAIN_B, TRAIN_T, feat_dim), dtype=np.float32))
+        true_len = TRAIN_T if i < TRAIN_FULL else TRAIN_RAGGED_LEN
+        feats[:, true_len:] = 0.0
+        mbs.append((feats.astype(np.float16), labels, true_len))
+    TA.write_archive(path, mbs)
+    return mbs
+
+
+def leaf_names(tree, prefix=""):
+    """Dotted names of a tree's leaves in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in leaf_names(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix.rstrip(".")]
+
+
+def train_cfg(TR, seed, **kw):
+    return TR.TrainConfig(model="no_dropout", num_targets=TRAIN_CLASSES,
+                          compute_dtype="bfloat16", block_size=16,
+                          random_seed=seed, **kw)
+
+
+def phase_training(TR, TA, CB, schedules, dev, seed, tag, tmp):
+    """The main training path, then its two comparisons.  Returns the
+    main path's launch counts and the first minibatch."""
+    path = os.path.join(tmp, "egs.1.xta")
+    t0 = time.perf_counter()
+    mbs = write_train_archive(TA, path, seed, 23)
+    audio_s = sum(TRAIN_B * t for _, _, t in mbs) / FRAMES_PER_SECOND
+    print(f"train: wrote {len(mbs)} minibatches ({TRAIN_FULL} full "
+          f"{TRAIN_B}x{TRAIN_T}, one of true length {TRAIN_RAGGED_LEN}) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    cfg = train_cfg(TR, seed)
+    tr = TR.Trainer(cfg, os.path.join(tmp, "exp"), device=dev)
+    num_iters = 2
+
+    # the main path: counts zeroed just before, read just after
+    for name in CB.launches:
+        CB.launches[name] = 0
+    passes = []
+    for it in range(num_iters):
+        lr = schedules.learning_rate(it, num_iters,
+                                     cfg.initial_effective_lrate,
+                                     cfg.final_effective_lrate)
+        with TA.ArchiveReader(path) as reader:
+            t0 = time.perf_counter()
+            stats = tr.train_one_iteration(it, TA.PrefetchLoader(reader), lr,
+                                           0.0, 1.0)
+            passes.append((lr, stats, time.perf_counter() - t0))
+    launches = dict(CB.launches)
+
+    steps = 0
+    for it, (lr, st, secs) in enumerate(passes):
+        print(f"train pass {it}: lr {lr:.6g}, loss {st['loss']:.6f}, "
+              f"accuracy {st['accuracy']:.4f}, {st['minibatches']:g} "
+              f"minibatches ({st['dense_blocks']} dense blocks, "
+              f"{st['masked_blocks']} masked blocks, {st['single_steps']} "
+              f"single steps), {secs:.3f} s = {audio_s / secs:.1f} audio-s/s "
+              f"host-inclusive; dispatch {st.get('dispatch', 0.0):.3f} s, "
+              f"upload wait {st.get('upload_wait', 0.0):.3f} s, drain "
+              f"{st.get('device_drain', 0.0):.3f} s [{tag}]")
+        if not math.isfinite(st["loss"]):
+            fail(f"train pass {it}: non-finite loss")
+        if (st["minibatches"], st["dense_blocks"], st["masked_blocks"],
+                st["single_steps"]) != (TRAIN_FULL + 1, TRAIN_FULL // 16, 0,
+                                        1):
+            fail(f"train pass {it}: expected two dense blocks and one "
+                 "single step")
+        steps += int(st["minibatches"])
+    if not passes[1][1]["loss"] < passes[0][1]["loss"]:
+        fail("train: the second pass's loss is not below the first's")
+    # the layers the model sends to the kernels: k > 1 and k·Cin > 160
+    # (no_dropout: layers 1 and 2); each makes one call of each kernel
+    mc = tr.model_cfg
+    cins = (mc.feat_dim,) + mc.channels[:-1]
+    wide = sum(1 for k, c in zip(mc.kernel_sizes, cins)
+               if k > 1 and k * c > 160)
+    want = {name: wide * steps for name in ("fwd", "dw", "dx")}
+    print(f"train: kernel calls on the main path {launches} over {steps} "
+          f"minibatch steps (expected {want}: K2, K3 and K4 once for each "
+          f"of the {wide} wide conv layers of each step)")
+    if launches != want:
+        fail(f"train: kernel launch counts are not {3 * wide} per "
+             "minibatch step")
+
+    # one bf16 step, fused against unfused, from the same fresh weights
+    from xvector_tpu_torch.models.convert import tree_leaves, tree_map
+    fresh = TR.Trainer(cfg, os.path.join(tmp, "fresh"), device=dev)
+    x = torch.from_numpy(mbs[0][0].copy()).to(dev)
+    y = torch.from_numpy(mbs[0][1].copy()).to(dev)
+    out = {}
+    for fused in (True, False):
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                     fresh.params)
+        loss, _ = TR._loss_fn(fresh.model_cfg,
+                              replace(cfg, fused_conv_bwd=fused), p,
+                              fresh.state, x, y, TRAIN_T, TRAIN_B, 1.0, None,
+                              dense=True)
+        out[fused] = (float(loss.detach()),
+                      torch.autograd.grad(loss, tree_leaves(p)))
+    rel = abs(out[True][0] - out[False][0]) / abs(out[False][0])
+    cos = {n: float(F.cosine_similarity(a.double().flatten(),
+                                        b.double().flatten(), dim=0))
+           for n, a, b in zip(leaf_names(fresh.params), out[True][1],
+                              out[False][1])}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    print(f"train: bf16 step fused vs unfused: loss {out[True][0]:.6f} vs "
+          f"{out[False][0]:.6f} (relative {rel:.3g}, bound "
+          f"{TRAIN_LOSS_BOUND}); gradient cosine min "
+          f"{worst[0][1]:.6f} (bound {TRAIN_COSINE_BOUND}), lowest "
+          + ", ".join(f"{n} {c:.6f}" for n, c in worst))
+    if rel > TRAIN_LOSS_BOUND or worst[0][1] < TRAIN_COSINE_BOUND:
+        fail("train: fused and unfused bf16 steps disagree")
+
+    # one f32 block of tiny on the card against the same block on the CPU
+    # (SGD: Adam would turn ulp-level gradient noise into ±lr moves)
+    small = TR.TrainConfig(model="tiny", num_targets=50,
+                           compute_dtype="float32", block_size=4,
+                           optimizer="sgd", random_seed=seed)
+    rng = np.random.RandomState(seed + 21)
+    xs = rng.randn(4, 8, 40, 23).astype(np.float16)
+    ys = rng.randint(0, 50, (4, 8)).astype(np.int32)
+    t_lens, n_rows = [40, 33, 40, 27], [8, 8, 6, 8]
+    res = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t = TR.Trainer(small, os.path.join(tmp, f"small_{where}"), device=d)
+        state, m = t._block_fn(t.params, t.optimizer, t.state,
+                               torch.from_numpy(xs).to(d),
+                               torch.from_numpy(ys).to(d), t_lens, n_rows,
+                               1e-2, 1.0, 1.0, None)
+        res[where] = ([v.detach().cpu() for v in tree_leaves(t.params)]
+                       + [v.cpu() for v in tree_leaves(state)],
+                       float(m["loss"]))
+    f32_err = max(norm_err(a, b)[1] for a, b in zip(res["card"][0],
+                                                     res["cpu"][0]))
+    print(f"train: f32 tiny block (4 minibatches, masked, SGD) card vs CPU: "
+          f"loss {res['card'][1]:.6f} vs {res['cpu'][1]:.6f}, parameters "
+          f"and BN state normalised error {f32_err:.3g} (bound "
+          f"{TRAIN_F32_BOUND})")
+    if f32_err > TRAIN_F32_BOUND:
+        fail("train: f32 block on the card disagrees with the CPU")
+    return launches
+
+
+def phase_train_timing(TR, dev, seed, tag, tmp):
+    """The block step (16 dense minibatches) fused and unfused in turns,
+    host clock around each block ending in a synchronise, then a profiler
+    breakdown of one fused block."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(seed + 31)
+    xs = torch.from_numpy(rng.standard_normal(
+        (16, TRAIN_B, TRAIN_T, 23), dtype=np.float32).astype(np.float16)
+    ).to(dev)
+    ys = torch.from_numpy(rng.integers(0, TRAIN_CLASSES, (16, TRAIN_B),
+                                       dtype=np.int32)).to(dev)
+    full = ([TRAIN_T] * 16, [TRAIN_B] * 16)
+    trainers = {fused: TR.Trainer(train_cfg(TR, seed, fused_conv_bwd=fused),
+                                  os.path.join(tmp, f"timing_{fused}"),
+                                  device=dev)
+                for fused in (True, False)}
+
+    def block(fused):
+        t = trainers[fused]
+        t.state, _ = t._block_dense_fn(t.params, t.optimizer, t.state, xs,
+                                       ys, *full, 1e-3, 1.0, 1.0, None)
+
+    def timed(fused):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        block(fused)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / 16
+
+    for _ in range(2):                    # warm-up
+        for fused in (True, False):
+            timed(fused)
+    times = {True: [], False: []}
+    for order in ((True, False), (False, True), (True, False),
+                  (False, True)):
+        for fused in order:
+            times[fused].append(timed(fused))
+    audio_per_mb = TRAIN_B * TRAIN_T / FRAMES_PER_SECOND
+    for fused in (True, False):
+        med = statistics.median(times[fused])
+        name = "fused" if fused else "unfused"
+        print(f"timing train block step no_dropout {TRAIN_B}x{TRAIN_T} "
+              f"{name} bf16 Adam: {med:.4f} ms per minibatch = "
+              f"{audio_per_mb / med * 1e3:.1f} audio-s/s (median of "
+              f"{len(times[fused])} blocks of 16: "
+              + ", ".join(f"{v:.4f}" for v in times[fused]) + f") [{tag}]")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        block(True)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device kernels and copies; a user annotation (Optimizer.step's
+    # range) also shows on the device's timeline and is left out
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+    if not dev_events:
+        print(f"profile train block: the profiler recorded no device "
+              f"events; breakdown not measured [{tag}]")
+        return
+
+    def group(name):
+        if "shift_gemm_kernel<false>" in name:
+            return "K2 conv fwd"
+        if "shift_gemm_kernel<true>" in name:
+            return "K4 conv dx"
+        if "dw_gemm_kernel" in name or "dw_reduce_kernel" in name:
+            return "K3 conv dw"
+        low = name.lower()
+        if "memcpy" in low or "memset" in low:
+            return "copies"
+        if any(s in low for s in ("gemm", "xmma", "nvjet", "cutlass",
+                                  "gemv", "matmul")):
+            return "torch matmuls"
+        if "multi_tensor" in low or "adam" in low:
+            return "optimizer"
+        if "reduce_kernel" in low:
+            return "reductions (BN moments, pooling, sums)"
+        if "elementwise" in low:
+            return "elementwise (bias, ReLU, BN affine, casts, grads)"
+        return "other (softmax, gather, ...)"
+
+    groups, names = {}, {}
+    for e in dev_events:
+        us = e.time_range.elapsed_us()
+        g = group(e.name)
+        groups[g] = groups.get(g, 0.0) + us
+        names[e.name] = names.get(e.name, 0.0) + us
+    busy = sum(groups.values())
+    plain_us = statistics.median(times[True]) * 16e3
+    print(f"profile train block (16 dense minibatches, fused, bf16 Adam): "
+          f"device busy {busy:.1f} us of {wall_us:.1f} us host-inclusive "
+          f"under the profiler = {1 - busy / wall_us:.1%} device idle "
+          f"({1 - busy / plain_us:.1%} of the unprofiled median block, "
+          f"{plain_us:.1f} us); "
+          + "; ".join(f"{g} {us:.1f} us ({us / busy:.1%})"
+                      for g, us in sorted(groups.items(),
+                                          key=lambda kv: -kv[1]))
+          + f" [{tag}]")
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+    print("profile train block top kernels: " + "; ".join(
+        f"{n[:70]} {us:.1f} us" for n, us in top) + f" [{tag}]")
+    # the same device time by the aten operator that launched it
+    ops = [(a.key, a.self_device_time_total, a.count)
+           for a in prof.key_averages()
+           if a.key.startswith("aten::") and a.self_device_time_total > 0]
+    print("profile train block top ops by self device time: " + "; ".join(
+        f"{k} {us:.1f} us ({n} calls)"
+        for k, us, n in sorted(ops, key=lambda o: -o[1])[:14]) + f" [{tag}]")
+
+
+def conv_work(b, t, cin, cout, k, which):
+    """(FLOP, bytes) one call must do: 2·B·T·Cin·Cout·k; each bf16 input
+    read once and each output written once (K3's dW in f32)."""
+    flops = 2 * b * t * cin * cout * k
+    w_bytes = k * cin * cout * 2
+    if which == "fwd":
+        nbytes = b * t * cin * 2 + w_bytes + b * t * cout * 2
+    elif which == "dx":
+        nbytes = b * t * cout * 2 + w_bytes + b * t * cin * 2
+    else:
+        nbytes = b * t * (cin + cout) * 2 + k * cin * cout * 4
+    return flops, nbytes
+
+
+def phase_conv_timing(CB, dev, seed, tag):
+    """K2, K3 and K4 at the training shapes: ms per call, launches per
+    call, the plain version, the bound, and the one PyTorch (cuDNN) call
+    that computes the same function on channels-first copies made outside
+    the timed region."""
+    out = {}
+    cin = cout = 512
+    for k in (5, 7):
+        x, w, g = conv_inputs(TRAIN_B, TRAIN_T, cin, cout, k, dev, seed + k)
+        left = (k - 1) // 2
+        xc = x.transpose(1, 2).contiguous()            # (B, Cin, T)
+        gc = g.transpose(1, 2).contiguous()            # (B, Cout, T)
+        wc = w.permute(2, 1, 0).contiguous()           # (Cout, Cin, K)
+
+        def lib_bwd(mask):
+            return torch.ops.aten.convolution_backward(
+                gc, xc, wc, None, [1], [left], [1], False, [0], 1, mask)
+
+        fns = {
+            "fwd": (lambda: CB.conv_fwd(x, w, 1),
+                    lambda: CB.conv_fwd_reference(x, w, 1),
+                    lambda: F.conv1d(xc, wc, padding=left),
+                    lambda r: r.transpose(1, 2)),
+            "dw": (lambda: CB.conv_dw(x, g, k, 1),
+                   lambda: CB.conv_dw_reference(x, g, k, 1),
+                   lambda: lib_bwd([False, True, False]),
+                   lambda r: r[1].permute(2, 1, 0)),
+            "dx": (lambda: CB.conv_dx(g, w, 1),
+                   lambda: CB.conv_dx_reference(g, w, 1),
+                   lambda: lib_bwd([True, False, False]),
+                   lambda r: r[0].transpose(1, 2)),
+        }
+        for name, (kern, plain, lib, lib_view) in fns.items():
+            # the library call computes the same function
+            _, lib_err = norm_err(lib_view(lib()), kern())
+            before = CB.launches[name]
+            ms = cuda_ms(kern, 20, 3)
+            per_call = (CB.launches[name] - before) / 23
+            plain_ms = cuda_ms(plain, 10, 2)
+            lib_ms = cuda_ms(lib, 20, 3)
+            flops, nbytes = conv_work(TRAIN_B, TRAIN_T, cin, cout, k, name)
+            ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+            mem_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            bound_ms = max(ops_ms, mem_ms)
+            bound_by = "operations" if ops_ms >= mem_ms else "bytes"
+            print(f"timing conv {name} k={k} {TRAIN_B}x{TRAIN_T} "
+                  f"{cin}->{cout}: {ms:.4f} ms/call, {per_call:g} "
+                  f"launches/call, plain {plain_ms:.4f} ms, library "
+                  f"{lib_ms:.4f} ms (normalised difference {lib_err:.3g}), "
+                  f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.4g} FLOP, "
+                  f"{nbytes / 1e6:.1f} MB), {flops / ms / 1e9:.1f} TFLOP/s = "
+                  f"{bound_ms / ms:.1%} of bound [{tag}]")
+            if lib_err > KERNEL_BOUND:
+                fail(f"conv {name} k={k}: the library call computes "
+                     "another function")
+            out[(name, k)] = {"ms": ms, "plain_ms": plain_ms,
+                              "library_ms": lib_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -394,8 +848,12 @@ def main(argv=None) -> int:
     from xvector_tpu_torch.extract import extractor as TE
     from xvector_tpu_torch.io import kaldi_ark as kio
     from xvector_tpu_torch.models import tdnn as tt
+    from xvector_tpu_torch.data import archives as TA
     from xvector_tpu_torch.ops import _build
+    from xvector_tpu_torch.ops import conv_bwd as CB
     from xvector_tpu_torch.ops import tdnn_kernel as TK
+    from xvector_tpu_torch.train import schedules
+    from xvector_tpu_torch.train import trainer as TR
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -423,11 +881,21 @@ def main(argv=None) -> int:
     phase_profile(tt, TE, dev, args.seed, tag)
     k1 = phase_k1_timing(tt, TK, dev, args.seed, tag)
 
-    print(json.dumps({"kernels": [{
+    # 6. K2, K3 and K4 against their plain versions
+    conv_errs = phase_conv_checks(CB, dev, args.seed)
+
+    # 7. the training path, then 8. its timings
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches = phase_training(TR, TA, CB, schedules, dev,
+                                        args.seed, tag, tmp)
+        phase_train_timing(TR, dev, args.seed, tag, tmp)
+    conv = phase_conv_timing(CB, dev, args.seed, tag)
+
+    kernels = [{
         "name": "tdnn_frame_stack",
         "route": "cuda",
         "source": "xvector_tpu_torch/csrc/tdnn_stack.cu",
-        "replaces": "xvector_tpu/ops/tdnn_kernel.py:97",
+        "replaces": "xvector_tpu/ops/tdnn_kernel.py:99",
         "launches": main_launches,
         "max_abs_err": errs[("no_dropout", 32, 1024)],
         "ms": k1["ms"],
@@ -436,7 +904,26 @@ def main(argv=None) -> int:
         "bound_by": k1["bound_by"],
         # no single PyTorch call computes the whole stack
         "library_ms": None,
-    }]}))
+    }]
+    # K2-K4: the main path makes one k=5 and one k=7 call of each per
+    # step, so each time below is the mean of the two per-call times
+    for name, label, line in (("fwd", "conv_fwd", 114), ("dw", "conv_dw", 174),
+                              ("dx", "conv_dx", 201)):
+        per_k = [conv[(name, k)] for k in (5, 7)]
+        mean = {key: sum(c[key] for c in per_k) / 2
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        kernels.append({
+            "name": label,
+            "route": "cuda",
+            "source": "xvector_tpu_torch/csrc/conv_bwd.cu",
+            "replaces": f"xvector_tpu/ops/conv_bwd.py:{line}",
+            "launches": train_launches[name],
+            "max_abs_err": conv_errs[name],
+            **mean,
+            "bound_by": per_k[0]["bound_by"],
+            "shapes": "64x304, 512->512, k=5 and k=7 (mean per call)",
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

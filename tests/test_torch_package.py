@@ -18,6 +18,8 @@ from xvector_tpu_torch.extract import extractor as TE
 from xvector_tpu_torch.models import tdnn as tt
 from xvector_tpu_torch.models.convert import (params_from_numpy,
                                               params_to_numpy)
+from xvector_tpu_torch.ops import conv_bwd as CB
+from xvector_tpu_torch.train import trainer as TR
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "xvector_tpu_torch"
@@ -66,8 +68,9 @@ def test_no_jax_import_in_source(path):
 
 
 @pytest.mark.parametrize("entry", ["init_params", "params_from_numpy",
-                                   "extractor", "preprocess"])
-def test_entry_points_refuse_missing_cuda(monkeypatch, entry):
+                                   "extractor", "preprocess", "Trainer",
+                                   "conv1d_same_fused_bwd"])
+def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tt.MODEL_ZOO["tiny"]
     tp, ts = tt.init_params(torch.Generator().manual_seed(0), cfg, 3,
@@ -78,6 +81,13 @@ def test_entry_points_refuse_missing_cuda(monkeypatch, entry):
             *params_to_numpy(tp, ts)),
         "extractor": lambda: TE.XvectorExtractor(cfg, tp, ts),
         "preprocess": lambda: TE.preprocess(np.zeros((40, 23), np.float32)),
+        "Trainer": lambda: TR.Trainer(
+            TR.TrainConfig(model="tiny", num_targets=3), str(tmp_path)),
+        # a tensor that is not on the CPU: the kernels or an error, never
+        # the plain versions
+        "conv1d_same_fused_bwd": lambda: CB.conv1d_same_fused_bwd(
+            torch.zeros(2, 8, 16, dtype=torch.bfloat16, device="meta"),
+            torch.zeros(3, 16, 8, dtype=torch.bfloat16, device="meta"), 1),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

@@ -16,7 +16,7 @@ import torch
 
 from .. import resolve_device
 
-__all__ = ["tree_map", "params_from_numpy", "params_to_numpy"]
+__all__ = ["tree_map", "tree_leaves", "params_from_numpy", "params_to_numpy"]
 
 
 def tree_map(fn: Callable[[Any], Any], tree):
@@ -26,6 +26,16 @@ def tree_map(fn: Callable[[Any], Any], tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nest of dicts, lists and tuples, in a fixed order
+    (dict insertion order, then list order)."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
 
 
 def params_from_numpy(params_np, state_np, device="cuda"):

@@ -1,26 +1,29 @@
-"""TDNN x-vector model zoo — eval-mode PyTorch port.
+"""TDNN x-vector model zoo — PyTorch port.
 
 Counterpart of ``xvector_tpu/models/tdnn.py``: the same config dataclass
 and presets, the same parameter tree (``{"frame": [...], "embed": [...],
 "output": {...}}`` with ``(K, Cin, Cout)`` conv weights) and the same
-numerics for the extraction forward: conv1d(SAME) + bias → activation →
-batch-norm folded to one affine → frame mask, masked stats pooling, and
-the embed-0 pre-activation readout.
+numerics: conv1d(SAME) + bias → activation → batch norm (batch moments in
+train mode, population statistics folded to one affine in eval mode) →
+frame mask, masked stats pooling, the embed-0 pre-activation readout, the
+classifier head and the L2 term (:func:`apply`), and the closed-form EMA
+fold of per-step batch moments (:func:`fold_bn_state`).
 
-Train-mode ``apply``, ``attention_pooling`` and ``fold_bn_state`` are not
-ported yet; ``extract_xvector`` raises on an attention-pooling config.
+``attention_pooling`` is not ported yet: :func:`apply` and
+``extract_xvector`` raise on an attention-pooling config.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..ops import conv_bwd
 from .convert import tree_map
 
 VAR2STD_EPSILON = 1e-5
@@ -210,37 +213,87 @@ def _activate(cfg: TdnnConfig, layer: Params, x):
     raise ValueError(cfg.activation)
 
 
-def _masked_moments(x, mask, axes):
-    """Mean and variance over ``axes`` as E[x²]−mean², ignoring positions
-    where mask == 0.  Products run in x's dtype; the sums accumulate in
-    f32 (f64 for f64 input).  ``mask`` broadcasts against x with a trailing
-    feature dim of 1."""
+def _masked_moments(x, mask, axes, centered: bool = False):
+    """Mean and variance over ``axes``, ignoring positions where
+    mask == 0.  Products run in x's dtype; the sums accumulate in f32 (f64
+    for f64 input).  ``mask`` broadcasts against x with a trailing feature
+    dim of 1.  The variance is E[x²]−mean², or with ``centered`` the mean
+    of (x−mean)²: one elementwise pass more, but free of the cancellation
+    that makes autograd through E[x²]−mean² lose most digits of the input
+    gradient in f32 (the train-mode batch norm takes it)."""
     acc = _acc_dtype(x.dtype)
     if mask is None:
+        m = None
         count = math.prod(x.shape[a] for a in axes)
-        mean = x.sum(axes, dtype=acc) / count
-        var = x.square().sum(axes, dtype=acc) / count - mean.square()
-        return mean, var
-    m = mask.to(x.dtype)
-    count = mask.to(acc).sum(axes).clamp(min=1.0)
-    mean = (x * m).sum(axes, dtype=acc) / count
-    var = (x.square() * m).sum(axes, dtype=acc) / count - mean.square()
-    return mean, var
+    else:
+        m = mask.to(x.dtype)
+        count = mask.to(acc).sum(axes).clamp(min=1.0)
+
+    def wsum(v):
+        return (v if m is None else v * m).sum(axes, dtype=acc) / count
+
+    mean = wsum(x)
+    if not centered:
+        return mean, wsum(x.square()) - mean.square()
+    mean_k = mean.to(x.dtype)
+    for a in sorted(axes):
+        mean_k = mean_k.unsqueeze(a)
+    return mean, wsum((x - mean_k).square())
 
 
-def _batch_norm_eval(x, bn_p, bn_s, cfg: TdnnConfig):
-    """Eval-mode batch norm folded into one per-channel affine computed in
-    f32 and applied in x's dtype."""
-    inv = torch.rsqrt(bn_s["var"] + cfg.bn_eps)
+def _batch_norm(x, bn_p, bn_s, mask, train: bool, cfg: TdnnConfig,
+                stats_out: bool = False):
+    """tf_block.batch_norm_wrapper semantics: train → batch moments (masked)
+    and an EMA update of the population statistics; eval → population
+    statistics.  ``stats_out=True`` (train only) returns the raw batch
+    moments in place of the EMA'd state, for :func:`fold_bn_state`; the
+    normalisation is the same either way.  (mean, var, γ, β) fold into one
+    per-channel affine computed in f32 and applied in x's dtype."""
+    if train:
+        mean, var = _masked_moments(x, mask, tuple(range(x.dim() - 1)),
+                                    centered=True)
+        if stats_out:
+            new_s = {"mean": mean, "var": var}
+        else:
+            new_s = {"mean": bn_s["mean"] * cfg.bn_decay
+                     + mean * (1 - cfg.bn_decay),
+                     "var": bn_s["var"] * cfg.bn_decay
+                     + var * (1 - cfg.bn_decay)}
+    else:
+        mean, var = bn_s["mean"], bn_s["var"]
+        new_s = bn_s
+    inv = torch.rsqrt(var + cfg.bn_eps)
     a = (inv * bn_p["gamma"]).to(x.dtype)
-    b = (bn_p["beta"] - bn_s["mean"] * inv * bn_p["gamma"]).to(x.dtype)
-    return x * a + b
+    b = (bn_p["beta"] - mean * inv * bn_p["gamma"]).to(x.dtype)
+    return x * a + b, new_s
 
 
-def _conv1d_same(x, w, dilation: int):
+def fold_bn_state(state0: State, stacked: State, decay: float) -> State:
+    """Fold N stacked per-step batch moments (leaves (N, C)) into the EMA
+    population statistics: s_N = decay^N s_0 + (1-decay) Σ_i
+    decay^(N-1-i) b_i, the result of applying the EMA update N times."""
+    def fold(s0, bs):
+        n = bs.shape[0]
+        i = torch.arange(n, dtype=torch.float32, device=bs.device)
+        w = (1.0 - decay) * torch.pow(decay, n - 1 - i)
+        return decay ** n * s0 + torch.tensordot(w.to(bs.dtype), bs, dims=1)
+
+    return {part: [{key: fold(s0[key], bs[key]) for key in s0}
+                   for s0, bs in zip(state0[part], stacked[part])]
+            for part in state0}
+
+
+def _conv1d_same(x, w, dilation: int, fused_bwd: bool = False):
     """(B, T, Cin) ⊛ (K, Cin, Cout) → (B, T, Cout), SAME padding, in the
     weight dtype.  Narrow inputs (k·Cin ≤ 160, the MFCC front layer) are
-    unfolded into one matmul; wider ones take k shifted matmuls."""
+    unfolded into one matmul; wider ones take k shifted matmuls.
+
+    ``fused_bwd`` sends a wide k > 1 layer (k·Cin > 160) in bf16 to
+    ``ops/conv_bwd.conv1d_same_fused_bwd``: the hand-written forward and
+    backward kernels on the card, their plain versions on the CPU.  A
+    tensor the kernels refuse there raises; it never goes elsewhere.  In
+    any other dtype (an f32 step) the layer takes the shifted matmuls:
+    the kernels take bf16 operands only."""
     k, cin, cout = w.shape
     x = x.to(w.dtype)
     t = x.shape[1]
@@ -248,6 +301,10 @@ def _conv1d_same(x, w, dilation: int):
     right = (k - 1) * dilation - left
     if k == 1:
         return x @ w[0]
+    if (fused_bwd and k * cin > 160
+            and conv_bwd.supports(x.shape, w.shape, dilation, w.dtype)):
+        return conv_bwd.conv1d_same_fused_bwd(x.contiguous(), w.contiguous(),
+                                              dilation)
     xp = F.pad(x, (0, 0, left, right))
     if k * cin <= 160:
         xu = torch.cat([xp[:, j * dilation: j * dilation + t]
@@ -276,8 +333,97 @@ def stats_pooling(h, mask=None, eps: float = VAR2STD_EPSILON):
 
 
 # ---------------------------------------------------------------------------
-# Forward pass (eval)
+# Forward pass
 # ---------------------------------------------------------------------------
+
+def apply(cfg: TdnnConfig, params: Params, state: State, x, *, mask=None,
+          row_weight=None, train: bool = False, dropout_keep: float = 1.0,
+          generator: Optional[torch.Generator] = None,
+          compute_dtype=torch.float32, bn_stats_out: bool = False,
+          skip_head: bool = False,
+          fused_conv_bwd: bool = False) -> Dict[str, Any]:
+    """Forward pass, train or eval.
+
+    x is (B, T, feat_dim); ``mask`` an optional (B, T) 1/0 frame mask;
+    ``row_weight`` an optional (B,) 1/0 row validity, whose zero rows are
+    left out of the batch-norm statistics.  Dropout (``cfg.use_dropout``
+    and ``train``) draws from ``generator``, whose bits differ from
+    ``jax.random``'s.  ``fused_conv_bwd`` routes the wide conv layers to
+    ``ops/conv_bwd`` (see :func:`_conv1d_same`).
+
+    Returns ``logits`` (B, num_classes) or None with ``skip_head``,
+    ``xvector`` (the embed-0 pre-activation), ``hidden``, ``pooled``,
+    ``l2_loss`` (already β-scaled) and ``state`` (the new BN state, or the
+    raw batch moments with ``bn_stats_out``)."""
+    if cfg.pooling != "stats":
+        raise NotImplementedError(
+            f"pooling={cfg.pooling!r} is not ported yet")
+    m = None if mask is None else mask.to(torch.float32)[..., None]
+    rw = (None if row_weight is None
+          else row_weight.to(torch.float32)[:, None])
+    if rw is not None:
+        m = rw[..., None] if m is None else m * rw[..., None]
+    new_state: State = {"frame": [], "embed": []}
+    h = x.to(compute_dtype)
+
+    def dropout(h):
+        if not (cfg.use_dropout and train):
+            return h
+        if generator is None:
+            raise ValueError("dropout requires a generator")
+        keep = torch.rand(h.shape, generator=generator,
+                          device=h.device) < dropout_keep
+        return torch.where(keep, h / dropout_keep, torch.zeros_like(h))
+
+    if m is not None:
+        h = h * m.to(h.dtype)        # zero pad frames (SAME-style padding)
+    for i, layer in enumerate(params["frame"]):
+        h = _conv1d_same(h, layer["w"].to(compute_dtype), cfg.dilations[i],
+                         fused_bwd=fused_conv_bwd
+                         ) + layer["b"].to(compute_dtype)
+        h = _activate(cfg, layer, h)
+        h, bn_s = _batch_norm(h, layer["bn"], state["frame"][i], m, train,
+                              cfg, stats_out=bn_stats_out)
+        if m is not None:
+            h = h * m.to(h.dtype)    # keep pad positions zero for next conv
+        new_state["frame"].append(bn_s)
+        if i != cfg.num_frame_layers - 1:
+            h = dropout(h)
+
+    pooled = stats_pooling(h, m)
+    acc = _acc_dtype(compute_dtype)
+    l2 = torch.zeros((), dtype=acc, device=x.device)
+    h = pooled
+    xvector = None
+    for i, layer in enumerate(params["embed"]):
+        pre = _affine(h, layer["w"], layer["b"], compute_dtype)
+        if i == 0:
+            xvector = pre.to(acc)
+        if cfg.l2_beta > 0.0:
+            scale = 0.1 if i == 0 else 1.0     # models.py:811-817
+            l2 = l2 + scale * 0.5 * (layer["w"].square().sum()
+                                     + layer["b"].square().sum())
+        h = _activate(cfg, layer, pre)
+        h, bn_s = _batch_norm(h, layer["bn"], state["embed"][i], rw, train,
+                              cfg, stats_out=bn_stats_out)
+        new_state["embed"].append(bn_s)
+        if i != len(cfg.embed_dims) - 1:
+            h = dropout(h)
+
+    out = params["output"]
+    logits = (None if skip_head
+              else _affine(h, out["w"], out["b"], compute_dtype))
+    if cfg.l2_beta > 0.0:
+        l2 = l2 + 0.5 * (out["w"].square().sum() + out["b"].square().sum())
+    return {
+        "logits": None if logits is None else logits.to(acc),
+        "xvector": xvector,
+        "hidden": h.to(acc),
+        "pooled": pooled,
+        "l2_loss": cfg.l2_beta * l2,
+        "state": new_state,
+    }
+
 
 def frame_stack(cfg: TdnnConfig, params: Params, state: State, x,
                 mask=None, compute_dtype=torch.float32):
@@ -291,7 +437,7 @@ def frame_stack(cfg: TdnnConfig, params: Params, state: State, x,
         h = _conv1d_same(h, layer["w"].to(compute_dtype),
                          cfg.dilations[i]) + layer["b"].to(compute_dtype)
         h = _activate(cfg, layer, h)
-        h = _batch_norm_eval(h, layer["bn"], state["frame"][i], cfg)
+        h, _ = _batch_norm(h, layer["bn"], state["frame"][i], m, False, cfg)
         if m is not None:
             h = h * m.to(h.dtype)
     return h

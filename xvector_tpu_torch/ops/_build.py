@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``.  Libraries
 go to ``xvector_tpu_torch/_build/<hash>/`` (listed in ``.gitignore``), keyed
-by a hash of the source and the flags, so an edited source is rebuilt and
-an unchanged one is reused.  Several sources compile in parallel: one
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused.  Several sources compile in parallel: one
 ``nvcc`` process each, all started together.
 """
 
@@ -23,7 +24,7 @@ __all__ = ["SOURCES", "build", "load"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("tdnn_stack.cu",)
+SOURCES = ("tdnn_stack.cu", "conv_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +45,8 @@ def _nvcc() -> str:
 
 def _lib_path(source: str) -> Path:
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16] / (Path(source).stem + ".so")
 
