@@ -28,25 +28,33 @@ Phases; any failure raises and the exit code is non-zero:
    profiler breakdown of the fused batch (per kernel, per K1 layer, device
    idle share), and K1 at 32x1024 against its plain version and its bound;
 6. K2, K3 and K4 (the SAME conv forward, weight gradient and input
-   gradient) against their plain versions on the card: at the training
-   shapes (64x304, 512 -> 512, k=5 and k=7), at ragged shapes (B=6, T=301,
-   384 <-> 640 channels), dilated (k=3, d=2, 3, 4), and the autograd
-   Function's dx and dW against autograd through the plain forward;
-   bounds 1e-2 (bf16 outputs of K2 and K4, the Function's gradients) and
-   1e-3 (K3's f32 output), as max |kernel - plain| / max |plain|;
+   gradient) against their plain versions on the card, K3 and K4 on the
+   design ``route`` picks ("sm90": ``csrc/conv_sm90.cu``): at the training
+   shapes (64x304, 512 -> 512, k=5 and k=7; there also K3 v1 and K4 v1,
+   the "sm80" design), one tile (1x64, 64 -> 64, k=3), ragged shapes
+   (B=6, T=301, 384 <-> 640 channels), dilated (k=3, d=2, 3, 4), two
+   "sm80" shapes (channel counts off 8), and the autograd Function's dx
+   and dW against autograd through the plain forward; bounds 1e-2 (bf16
+   outputs of K2 and K4, the Function's gradients) and 1e-3 (K3's f32
+   output), as max |kernel - plain| / max |plain|; K3 v2 must give the
+   same bits on two calls at the training shapes;
 7. the training path at full width (``no_dropout``, 7,185 classes, bf16,
    blocks of 16, Adam): an XTA archive of 32 full 64x304 minibatches and
    one ragged one written with ``write_archive``, read through
    ``ArchiveReader`` -> ``PrefetchLoader`` into
    ``Trainer.train_one_iteration`` twice (the main path: counts zeroed just
    before, read just after; exactly 6 kernel calls per minibatch step, two
-   dense blocks and one single step per pass, a falling loss); then one
+   dense blocks and one single step per pass, a falling loss, every K3
+   and K4 call on the "sm90" route, every K2 call through conv_bwd.cu's
+   shift_gemm_kernel<false>); then one
    bf16 step fused against unfused (torch matmuls) from the same weights,
    and one f32 block of ``tiny`` on the card against the CPU;
 8. timing lines tagged with the card: the block step fused and unfused
    (ms per minibatch, audio-s/s), a profiler breakdown of one fused block,
    and K2, K3 and K4 at k=5 and k=7 against their plain versions, their
-   bounds and the one PyTorch call that computes the same function.
+   bounds and the one PyTorch call that computes the same function; K3
+   and K4 in both designs (v2 "sm90" and v1 "sm80"), with CUDA launches
+   per call and a host-inclusive time per call (100 back-to-back calls).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full f32
@@ -89,6 +97,9 @@ TRAIN_F32_BOUND = 1e-3     # f32 block on the card vs the CPU, per tensor
 TRAIN_B, TRAIN_T = 64, 304            # the recipe's minibatch (bench.py)
 TRAIN_FULL, TRAIN_RAGGED_LEN = 32, 250
 TRAIN_CLASSES = 7185
+# the CUDA kernels of K2-K4 (csrc/conv_bwd.cu, csrc/conv_sm90.cu)
+KERNEL_NAMES = ("shift_gemm_kernel", "dw_gemm_kernel", "dw_reduce_kernel",
+                "dw_sm90_kernel", "dx_sm90_kernel")
 
 
 def fail(msg: str):
@@ -438,31 +449,52 @@ def phase_conv_checks(CB, dev, seed):
     max-abs error of each at the training shapes."""
     cases = [("train", 5, 1, TRAIN_B, TRAIN_T, 512, 512),
              ("train", 7, 1, TRAIN_B, TRAIN_T, 512, 512),
+             ("one-tile", 3, 1, 1, 64, 64, 64),
              ("ragged", 5, 1, 6, 301, 384, 640),
              ("ragged", 7, 1, 6, 301, 640, 384),
              ("dilated", 3, 2, 8, 300, 512, 512),
              ("dilated", 3, 3, 8, 300, 512, 512),
-             ("dilated", 3, 4, 8, 300, 512, 512)]
-    train_err = {"fwd": 0.0, "dw": 0.0, "dx": 0.0}
+             ("dilated", 3, 4, 8, 300, 512, 512),
+             ("off-8", 3, 2, 6, 301, 12, 20),
+             ("off-8", 5, 1, 4, 301, 100, 36)]
+    train_err = {"fwd": 0.0, "dw": 0.0, "dx": 0.0, "dw_sm80": 0.0,
+                 "dx_sm80": 0.0}
     for i, (kind, k, d, b, t, cin, cout) in enumerate(cases):
         x, w, g = conv_inputs(b, t, cin, cout, k, dev, seed + 200 + i)
+        design = CB.route(x.shape, w.shape, d)
+        if design != ("sm80" if kind == "off-8" else "sm90"):
+            fail(f"conv {kind} {cin}->{cout}: route() says {design}")
+        before = dict(CB.route_launches)
         got = {"fwd": CB.conv_fwd(x, w, d), "dw": CB.conv_dw(x, g, k, d),
                "dx": CB.conv_dx(g, w, d)}
+        if kind == "train":   # v1 at the same shapes
+            got["dw_sm80"] = CB.conv_dw(x, g, k, d, design="sm80")
+            got["dx_sm80"] = CB.conv_dx(g, w, d, design="sm80")
         torch.cuda.synchronize()
+        took = {n: CB.route_launches[n] - before[n] for n in before}
+        if (took[f"dw_{design}"], took[f"dx_{design}"]) != (1, 1):
+            fail(f"conv {kind}: K3/K4 did not run on the {design} route "
+                 f"({took})")
         want = {"fwd": CB.conv_fwd_reference(x, w, d),
                 "dw": CB.conv_dw_reference(x, g, k, d),
                 "dx": CB.conv_dx_reference(g, w, d)}
+        want["dw_sm80"], want["dx_sm80"] = want["dw"], want["dx"]
         shapes = {"fwd": ((b, t, cout), torch.bfloat16),
                   "dw": ((k, cin, cout), torch.float32),
                   "dx": ((b, t, cin), torch.bfloat16)}
-        for name in ("fwd", "dw", "dx"):
-            label = f"conv {name} {kind} k={k} d={d} {b}x{t} {cin}->{cout}"
+        shapes["dw_sm80"], shapes["dx_sm80"] = shapes["dw"], shapes["dx"]
+        for name in got:
+            kernel = {"fwd": "K2", "dw": f"K3 {design}",
+                      "dx": f"K4 {design}", "dw_sm80": "K3 sm80",
+                      "dx_sm80": "K4 sm80"}[name]
+            label = (f"conv {kernel} {kind} k={k} d={d} {b}x{t} "
+                     f"{cin}->{cout}")
             if (tuple(got[name].shape), got[name].dtype) != shapes[name]:
                 fail(f"{label}: shape/dtype {tuple(got[name].shape)} "
                      f"{got[name].dtype}, expected {shapes[name]}")
             if not torch.isfinite(got[name]).all():
                 fail(f"{label}: non-finite output")
-            bound = DW_BOUND if name == "dw" else KERNEL_BOUND
+            bound = DW_BOUND if name.startswith("dw") else KERNEL_BOUND
             abs_err, err = norm_err(got[name], want[name])
             print(f"{label}: max_abs_err={abs_err:.6g} normalised={err:.3g} "
                   f"(bound {bound})")
@@ -470,6 +502,17 @@ def phase_conv_checks(CB, dev, seed):
                 fail(f"{label} disagrees with its plain version")
             if kind == "train":
                 train_err[name] = max(train_err[name], abs_err)
+
+    # K3 v2 sums the cluster's partials in rank order: the same bits on
+    # every call
+    for k in (5, 7):
+        x, _, g = conv_inputs(TRAIN_B, TRAIN_T, 512, 512, k, dev, seed + 250)
+        a, b = CB.conv_dw(x, g, k, 1), CB.conv_dw(x, g, k, 1)
+        same = bool(torch.equal(a, b))
+        print(f"conv K3 sm90 k={k} {TRAIN_B}x{TRAIN_T} 512->512: "
+              f"bit-identical on two calls: {same}")
+        if not same:
+            fail(f"K3 v2 k={k} gave other bits on a second call")
 
     # the autograd Function against autograd through the plain forward
     k = 5
@@ -539,8 +582,9 @@ def phase_training(TR, TA, CB, schedules, dev, seed, tag, tmp):
     num_iters = 2
 
     # the main path: counts zeroed just before, read just after
-    for name in CB.launches:
-        CB.launches[name] = 0
+    for counts in (CB.launches, CB.route_launches):
+        for name in counts:
+            counts[name] = 0
     passes = []
     for it in range(num_iters):
         lr = schedules.learning_rate(it, num_iters,
@@ -552,6 +596,7 @@ def phase_training(TR, TA, CB, schedules, dev, seed, tag, tmp):
                                            0.0, 1.0)
             passes.append((lr, stats, time.perf_counter() - t0))
     launches = dict(CB.launches)
+    routes = dict(CB.route_launches)
 
     steps = 0
     for it, (lr, st, secs) in enumerate(passes):
@@ -586,6 +631,15 @@ def phase_training(TR, TA, CB, schedules, dev, seed, tag, tmp):
     if launches != want:
         fail(f"train: kernel launch counts are not {3 * wide} per "
              "minibatch step")
+    # K3 and K4 by design; K2 has one (conv_bwd.cu shift_gemm_kernel<false>,
+    # one launch per conv_fwd call)
+    want_routes = {"dw_sm90": want["dw"], "dx_sm90": want["dx"],
+                   "dw_sm80": 0, "dx_sm80": 0}
+    print(f"train: K3/K4 calls by design on the main path {routes} "
+          f"(expected {want_routes}); K2 calls through "
+          f"shift_gemm_kernel<false>: {launches['fwd']}")
+    if routes != want_routes:
+        fail("train: a K3 or K4 call of the main path left the sm90 route")
 
     # one bf16 step, fused against unfused, from the same fresh weights
     from xvector_tpu_torch.models.convert import tree_leaves, tree_map
@@ -643,7 +697,7 @@ def phase_training(TR, TA, CB, schedules, dev, seed, tag, tmp):
           f"{TRAIN_F32_BOUND})")
     if f32_err > TRAIN_F32_BOUND:
         fail("train: f32 block on the card disagrees with the CPU")
-    return launches
+    return launches, routes
 
 
 def phase_train_timing(TR, dev, seed, tag, tmp):
@@ -715,7 +769,10 @@ def phase_train_timing(TR, dev, seed, tag, tmp):
             return "K2 conv fwd"
         if "shift_gemm_kernel<true>" in name:
             return "K4 conv dx"
-        if "dw_gemm_kernel" in name or "dw_reduce_kernel" in name:
+        if "dx_sm90_kernel" in name:
+            return "K4 conv dx"
+        if ("dw_sm90_kernel" in name or "dw_gemm_kernel" in name
+                or "dw_reduce_kernel" in name):
             return "K3 conv dw"
         low = name.lower()
         if "memcpy" in low or "memset" in low:
@@ -774,15 +831,50 @@ def conv_work(b, t, cin, cout, k, which):
     return flops, nbytes
 
 
+def device_launches(fn, names, calls=3):
+    """CUDA kernels one call of ``fn`` launches, counted by the profiler
+    over the device events whose name holds one of ``names`` (None where it
+    records none).  A throw-away kernel goes first: the profiler may drop
+    the first device event it records."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and any(name in e.name for name in names))
+    return n / calls if n else None
+
+
+def host_ms(fn, calls=100) -> float:
+    """Host clock around ``calls`` back-to-back calls ending in a
+    synchronise, per call: what a host-bound caller pays, wrapper and
+    tensor-map encoding included."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
 def phase_conv_timing(CB, dev, seed, tag):
-    """K2, K3 and K4 at the training shapes: ms per call, launches per
-    call, the plain version, the bound, and the one PyTorch (cuDNN) call
-    that computes the same function on channels-first copies made outside
-    the timed region."""
+    """K2, K3 and K4 at the training shapes: ms per call, CUDA launches
+    per call, the plain version, the bound, and the one PyTorch (cuDNN)
+    call that computes the same function on channels-first copies made
+    outside the timed region.  K3 and K4 in both designs, v2 ("sm90", the
+    route these shapes take) and v1 ("sm80"), with a host-inclusive time
+    per call of each."""
     out = {}
     cin = cout = 512
     for k in (5, 7):
         x, w, g = conv_inputs(TRAIN_B, TRAIN_T, cin, cout, k, dev, seed + k)
+        if CB.route(x.shape, w.shape, 1) != "sm90":
+            fail("the training shapes do not route to sm90")
         left = (k - 1) // 2
         xc = x.transpose(1, 2).contiguous()            # (B, Cin, T)
         gc = g.transpose(1, 2).contiguous()            # (B, Cout, T)
@@ -792,46 +884,69 @@ def phase_conv_timing(CB, dev, seed, tag):
             return torch.ops.aten.convolution_backward(
                 gc, xc, wc, None, [1], [left], [1], False, [0], 1, mask)
 
-        fns = {
-            "fwd": (lambda: CB.conv_fwd(x, w, 1),
-                    lambda: CB.conv_fwd_reference(x, w, 1),
-                    lambda: F.conv1d(xc, wc, padding=left),
-                    lambda r: r.transpose(1, 2)),
-            "dw": (lambda: CB.conv_dw(x, g, k, 1),
-                   lambda: CB.conv_dw_reference(x, g, k, 1),
-                   lambda: lib_bwd([False, True, False]),
-                   lambda r: r[1].permute(2, 1, 0)),
-            "dx": (lambda: CB.conv_dx(g, w, 1),
-                   lambda: CB.conv_dx_reference(g, w, 1),
-                   lambda: lib_bwd([True, False, False]),
-                   lambda r: r[0].transpose(1, 2)),
-        }
-        for name, (kern, plain, lib, lib_view) in fns.items():
+        plain = {"fwd": lambda: CB.conv_fwd_reference(x, w, 1),
+                 "dw": lambda: CB.conv_dw_reference(x, g, k, 1),
+                 "dx": lambda: CB.conv_dx_reference(g, w, 1)}
+        lib = {"fwd": (lambda: F.conv1d(xc, wc, padding=left),
+                       lambda r: r.transpose(1, 2)),
+               "dw": (lambda: lib_bwd([False, True, False]),
+                      lambda r: r[1].permute(2, 1, 0)),
+               "dx": (lambda: lib_bwd([True, False, False]),
+                      lambda r: r[0].transpose(1, 2))}
+        kern = {("fwd", None): lambda: CB.conv_fwd(x, w, 1)}
+        for design in ("sm90", "sm80"):
+            kern[("dw", design)] = (
+                lambda d=design: CB.conv_dw(x, g, k, 1, design=d))
+            kern[("dx", design)] = (
+                lambda d=design: CB.conv_dx(g, w, 1, design=d))
+        for name in ("fwd", "dw", "dx"):
+            lib_call, lib_view = lib[name]
+            designs = (None,) if name == "fwd" else ("sm80", "sm90")
             # the library call computes the same function
-            _, lib_err = norm_err(lib_view(lib()), kern())
-            before = CB.launches[name]
-            ms = cuda_ms(kern, 20, 3)
-            per_call = (CB.launches[name] - before) / 23
-            plain_ms = cuda_ms(plain, 10, 2)
-            lib_ms = cuda_ms(lib, 20, 3)
+            _, lib_err = norm_err(lib_view(lib_call()),
+                                  kern[(name, designs[-1])]())
+            if lib_err > KERNEL_BOUND:
+                fail(f"conv {name} k={k}: the library call computes "
+                     "another function")
+            plain_ms = cuda_ms(plain[name], 10, 2)
+            lib_ms = cuda_ms(lib_call, 20, 3)
             flops, nbytes = conv_work(TRAIN_B, TRAIN_T, cin, cout, k, name)
             ops_ms = flops / PEAK_BF16_FLOPS * 1e3
             mem_ms = nbytes / PEAK_BYTES_PER_S * 1e3
             bound_ms = max(ops_ms, mem_ms)
             bound_by = "operations" if ops_ms >= mem_ms else "bytes"
-            print(f"timing conv {name} k={k} {TRAIN_B}x{TRAIN_T} "
-                  f"{cin}->{cout}: {ms:.4f} ms/call, {per_call:g} "
-                  f"launches/call, plain {plain_ms:.4f} ms, library "
-                  f"{lib_ms:.4f} ms (normalised difference {lib_err:.3g}), "
-                  f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.4g} FLOP, "
-                  f"{nbytes / 1e6:.1f} MB), {flops / ms / 1e9:.1f} TFLOP/s = "
-                  f"{bound_ms / ms:.1%} of bound [{tag}]")
-            if lib_err > KERNEL_BOUND:
-                fail(f"conv {name} k={k}: the library call computes "
-                     "another function")
-            out[(name, k)] = {"ms": ms, "plain_ms": plain_ms,
-                              "library_ms": lib_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by}
+            ms = {d: cuda_ms(kern[(name, d)], 20, 3) for d in designs}
+            hosts = {d: [] for d in designs}
+            for order in (designs, designs[::-1]):   # v1, v2, v2, v1
+                for d in order:
+                    hosts[d].append(host_ms(kern[(name, d)]))
+            for d in designs:
+                kernel = {"fwd": "K2", "dw": "K3", "dx": "K4"}[name]
+                host = statistics.mean(hosts[d])
+                per_call = device_launches(kern[(name, d)], KERNEL_NAMES)
+                print(f"timing conv {kernel}{'' if d is None else ' ' + d} "
+                      f"k={k} {TRAIN_B}x{TRAIN_T} {cin}->{cout}: "
+                      f"{ms[d]:.4f} ms/call, {per_call} CUDA launches/call, "
+                      f"host-inclusive {host:.4f} ms/call (100 back-to-back "
+                      f"calls, mean of {len(hosts[d])}), plain "
+                      f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+                      f"(normalised difference {lib_err:.3g}), bound "
+                      f"{bound_ms:.4f} ms by {bound_by} ({flops:.4g} FLOP, "
+                      f"{nbytes / 1e6:.1f} MB), "
+                      f"{flops / ms[d] / 1e9:.1f} TFLOP/s = "
+                      f"{bound_ms / ms[d]:.1%} of bound [{tag}]")
+                key = name if d in (None, "sm90") else f"{name}_{d}"
+                out[(key, k)] = {"ms": ms[d], "plain_ms": plain_ms,
+                                 "library_ms": lib_ms, "bound_ms": bound_ms,
+                                 "bound_by": bound_by, "host_ms": host}
+            if name != "fwd":
+                v1, v2 = out[(f"{name}_sm80", k)], out[(name, k)]
+                print(f"timing conv {kernel} k={k}: v2 (sm90) "
+                      f"{v2['ms']:.4f} ms vs v1 (sm80) {v1['ms']:.4f} ms = "
+                      f"{v1['ms'] / v2['ms']:.2f}x; host-inclusive v2 "
+                      f"{v2['host_ms']:.4f} vs v1 {v1['host_ms']:.4f} ms "
+                      f"({v2['host_ms'] / v1['host_ms'] - 1:+.1%}); cuDNN "
+                      f"{lib_ms:.4f} ms [{tag}]")
     return out
 
 
@@ -867,7 +982,7 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs)}")
     for src, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "warning")):
                 print(f"build {src}: {line.strip()}")
 
     # 3. K1 against its plain version
@@ -886,8 +1001,8 @@ def main(argv=None) -> int:
 
     # 7. the training path, then 8. its timings
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches = phase_training(TR, TA, CB, schedules, dev,
-                                        args.seed, tag, tmp)
+        train_launches, routes = phase_training(TR, TA, CB, schedules,
+                                                dev, args.seed, tag, tmp)
         phase_train_timing(TR, dev, args.seed, tag, tmp)
     conv = phase_conv_timing(CB, dev, args.seed, tag)
 
@@ -906,19 +1021,27 @@ def main(argv=None) -> int:
         "library_ms": None,
     }]
     # K2-K4: the main path makes one k=5 and one k=7 call of each per
-    # step, so each time below is the mean of the two per-call times
-    for name, label, line in (("fwd", "conv_fwd", 114), ("dw", "conv_dw", 174),
-                              ("dx", "conv_dx", 201)):
-        per_k = [conv[(name, k)] for k in (5, 7)]
-        mean = {key: sum(c[key] for c in per_k) / 2
-                for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    # step, so each time below is the mean of the two per-call times.
+    # conv_dw and conv_dx are the sm90 designs the main path runs; the
+    # sm80 designs stay for channel counts off 8 (0 main-path launches).
+    for key, label, source, line, launches in (
+            ("fwd", "conv_fwd", "conv_bwd.cu", 114, train_launches["fwd"]),
+            ("dw", "conv_dw", "conv_sm90.cu", 174, routes["dw_sm90"]),
+            ("dx", "conv_dx", "conv_sm90.cu", 201, routes["dx_sm90"]),
+            ("dw_sm80", "conv_dw_sm80", "conv_bwd.cu", 174,
+             routes["dw_sm80"]),
+            ("dx_sm80", "conv_dx_sm80", "conv_bwd.cu", 201,
+             routes["dx_sm80"])):
+        per_k = [conv[(key, k)] for k in (5, 7)]
+        mean = {m: sum(c[m] for c in per_k) / 2
+                for m in ("ms", "plain_ms", "bound_ms", "library_ms")}
         kernels.append({
             "name": label,
             "route": "cuda",
-            "source": "xvector_tpu_torch/csrc/conv_bwd.cu",
+            "source": f"xvector_tpu_torch/csrc/{source}",
             "replaces": f"xvector_tpu/ops/conv_bwd.py:{line}",
-            "launches": train_launches[name],
-            "max_abs_err": conv_errs[name],
+            "launches": launches,
+            "max_abs_err": conv_errs[key],
             **mean,
             "bound_by": per_k[0]["bound_by"],
             "shapes": "64x304, 512->512, k=5 and k=7 (mean per call)",

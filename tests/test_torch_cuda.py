@@ -5,7 +5,11 @@ against their plain PyTorch versions, on an NVIDIA GPU.  They skip where
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch:
 
-    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+    timeout 900 python -m pytest --noconftest -p no:cacheprovider \
+        tests/test_torch_cuda.py
+
+A phase bug in an mbarrier pipeline hangs rather than fails (the sm90
+kernels trap after ~4 s of waiting), so run them under ``timeout``.
 
 Bounds, as max |kernel − plain| / max |plain|: 1e-2 for K1, K2 and K4,
 whose outputs are bf16 (both round the same operands to bf16 and
@@ -120,16 +124,59 @@ def _conv_inputs(b, t, cin, cout, k, dev, seed=0):
 def test_conv_kernels_match_plain(k, d, b, t, cin, cout, cuda_device):
     x, w, g = _conv_inputs(b, t, cin, cout, k, cuda_device)
     before = dict(CB.launches)
+    routes = dict(CB.route_launches)
     y, dx, dw = CB.conv_fwd(x, w, d), CB.conv_dx(g, w, d), \
         CB.conv_dw(x, g, k, d)
     torch.cuda.synchronize()
     assert {n: CB.launches[n] - before[n] for n in before} == \
         {"fwd": 1, "dw": 1, "dx": 1}
+    design = CB.route(x.shape, w.shape, d)
+    assert _routes_delta(routes) == {"dx_" + design: 1, "dw_" + design: 1}
     assert (y.dtype, dx.dtype, dw.dtype) == (torch.bfloat16, torch.bfloat16,
                                              torch.float32)
     assert _err(y, CB.conv_fwd_reference(x, w, d)) <= BOUND
     assert _err(dx, CB.conv_dx_reference(g, w, d)) <= BOUND
     assert _err(dw, CB.conv_dw_reference(x, g, k, d)) <= DW_BOUND
+
+
+def _routes_delta(before):
+    return {n: CB.route_launches[n] - before[n] for n in before
+            if CB.route_launches[n] != before[n]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d,b,t,cin,cout", [
+    (3, 1, 1, 64, 64, 64),        # one tile: brings up the descriptors
+    (5, 1, 64, 304, 512, 512),    # the training shapes
+    (7, 1, 64, 304, 512, 512),
+    (5, 1, 6, 301, 384, 640),     # ragged B, T, and C off the tiles
+    (7, 1, 6, 301, 640, 384),
+    (3, 4, 8, 300, 512, 512),     # dilated
+    (5, 1, 3, 37, 40, 512),       # Cin = 40 (feat_dim 40 front layer)
+])
+def test_conv_sm90_kernels_match_plain(k, d, b, t, cin, cout, cuda_device):
+    """K3 v2 and K4 v2 (the "sm90" route) against the plain versions."""
+    assert CB.route((b, t, cin), (k, cin, cout), d) == "sm90"
+    x, w, g = _conv_inputs(b, t, cin, cout, k, cuda_device)
+    before = dict(CB.route_launches)
+    dx, dw = CB.conv_dx(g, w, d), CB.conv_dw(x, g, k, d)
+    torch.cuda.synchronize()
+    assert _routes_delta(before) == {"dx_sm90": 1, "dw_sm90": 1}
+    assert (dx.dtype, dw.dtype) == (torch.bfloat16, torch.float32)
+    assert _err(dx, CB.conv_dx_reference(g, w, d)) <= BOUND
+    assert _err(dw, CB.conv_dw_reference(x, g, k, d)) <= DW_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 7])
+def test_conv_dw_sm90_same_bits_on_every_call(k, cuda_device):
+    """K3 v2 sums the cluster's partials in rank order: no atomics, so two
+    calls on the same inputs give the same bits."""
+    x, _, g = _conv_inputs(64, 304, 512, 512, k, cuda_device, seed=3)
+    a = CB.conv_dw(x, g, k, 1)
+    b = CB.conv_dw(x, g, k, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -163,7 +210,8 @@ def test_conv_kernels_reject_what_they_do_not_take(cuda_device):
 @pytest.mark.cuda
 def test_tiny_train_step_launch_counts(cuda_device, tmp_path):
     """tiny's layer 2 (k=7, 32 channels: k·Cin = 224 > 160) is its one
-    wide layer: one K2, one K3 and one K4 call per step."""
+    wide layer: one K2, one K3 and one K4 call per step, K3 and K4 on the
+    "sm90" route."""
     tr = TR.Trainer(TR.TrainConfig(model="tiny", num_targets=5,
                                    compute_dtype="bfloat16"), str(tmp_path))
     rng = np.random.RandomState(0)
@@ -173,8 +221,10 @@ def test_tiny_train_step_launch_counts(cuda_device, tmp_path):
         cuda_device)
     for name in CB.launches:
         CB.launches[name] = 0
+    routes = dict(CB.route_launches)
     _, m = tr._step_fn(tr.params, tr.optimizer, tr.state, x, y, 33, 4, 1e-3,
                        1.0, 1.0, torch.Generator(cuda_device))
     torch.cuda.synchronize()
     assert CB.launches == {"fwd": 1, "dw": 1, "dx": 1}
+    assert _routes_delta(routes) == {"dw_sm90": 1, "dx_sm90": 1}
     assert np.isfinite(float(m["loss"]))

@@ -44,8 +44,13 @@
 //
 // Shapes need not be tile multiples: ragged B*T, Cin and Cout take
 // predicated loads and stores, and channel counts that are not multiples
-// of 8 take scalar loads into the same ring.  wgmma and TMA in place of
-// mma.sync and cp.async are later work.
+// of 8 take scalar loads into the same ring.
+//
+// Which calls run here: K2, always.  K3 and K4 run on conv_sm90.cu (wgmma,
+// TMA, warp specialisation) for every shape that ops/conv_bwd.py:route
+// calls "sm90" (every channel count a multiple of 8: every wide layer of
+// the model zoo); this file's K3 and K4 serve the "sm80" shapes, whose
+// channel counts TMA's 16-byte strides cannot take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

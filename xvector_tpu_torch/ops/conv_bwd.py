@@ -18,11 +18,18 @@ x needs a gradient, K4, and casts dW to ``w.dtype``.
 
 Dispatch is by device.  CPU tensors take the plain PyTorch versions
 (:func:`conv_fwd_reference`, :func:`conv_dw_reference`,
-:func:`conv_dx_reference`); CUDA tensors launch the kernels in
-``csrc/conv_bwd.cu`` or raise.  :func:`supports` is the card's rule: bf16
-operands of matching shapes.  :data:`launches` counts kernel calls, one
-per call of each kernel (a K3 call with a split reduction is two CUDA
-launches and counts once).
+:func:`conv_dx_reference`); CUDA tensors launch a kernel or raise.
+:func:`supports` is the card's rule: bf16 operands of matching shapes.
+K2 runs ``csrc/conv_bwd.cu``.  K3 and K4 have two designs, picked by the
+written shape rule :func:`route`: ``"sm90"`` (``csrc/conv_sm90.cu``:
+wgmma, TMA, warp specialisation; K3 one cluster launch with an ordered
+reduction in distributed shared memory, scheduled by
+:func:`dw_schedule`) for every channel count a multiple of 8, and
+``"sm80"`` (``csrc/conv_bwd.cu``: mma.sync, cp.async) for the rest.
+
+:data:`launches` counts kernel calls, one per call of each kernel (a K3
+v1 call with a split reduction is two CUDA launches and counts once);
+:data:`route_launches` counts the K3 and K4 calls by design.
 """
 
 from __future__ import annotations
@@ -37,16 +44,33 @@ from . import _build
 
 __all__ = ["conv1d_same_fused_bwd", "conv_fwd", "conv_dw", "conv_dx",
            "conv_fwd_reference", "conv_dw_reference", "conv_dx_reference",
-           "supports", "launches"]
+           "supports", "route", "dw_schedule", "dw_stages", "dw_ranges",
+           "dw_max_clusters", "launches", "route_launches"]
 
 SOURCE = "conv_bwd.cu"
+SOURCE_SM90 = "conv_sm90.cu"
 
-# Kernel calls so far, per kernel; chip_smoke.py zeroes and reads them.
+# Kernel calls so far, per kernel and, for K3 and K4, per design;
+# chip_smoke.py zeroes and reads them.
 launches = {"fwd": 0, "dw": 0, "dx": 0}
+route_launches = {"dw_sm90": 0, "dw_sm80": 0, "dx_sm90": 0, "dx_sm80": 0}
 
-_BM = _BN = 128        # K3 output tile (csrc/conv_bwd.cu)
-_BK = 64               # K3 rows per pipeline step
-_BLOCKS_PER_SM = 2
+_BM = _BN = 128        # K3 v1 output tile (csrc/conv_bwd.cu)
+_BK = 64               # K3 v1 rows per pipeline step
+_BLOCKS_PER_SM = 2     # K3 v1 blocks resident per SM
+
+# K3 v2 (csrc/conv_sm90.cu): output rows per tile, stage box of
+# DW_TT frames x DW_BB batch rows, cluster limit (portable size)
+DW_BM, DW_TT, DW_BB = 128, 16, 4
+DW_MAX_SPLITS = 8
+DW_BNS = (256, 128)
+# dw_schedule's cost model of one K3 v2 block: a stage of 64 rows costs
+# (bn + DW_STAGE_COLS) units (the A tile and the pipeline step cost as much
+# as ~320 more output columns), and a block DW_FIXED_STAGES stages more
+# (ring prologue, partial, ordered sum, store)
+DW_STAGE_COLS = 320
+DW_FIXED_STAGES = 10
+_INT32 = 2 ** 31
 
 
 def _left(k: int, dilation: int) -> int:
@@ -139,6 +163,52 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _lib_sm90() -> ctypes.CDLL:
+    lib = _build.load(SOURCE_SM90)
+    if lib.conv_dw_sm90_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.conv_dw_sm90_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
+                                            p]
+        lib.conv_dx_sm90_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+        lib.conv_dw_sm90_launch.restype = ctypes.c_int
+        lib.conv_dx_sm90_launch.restype = ctypes.c_int
+        lib.conv_dw_sm90_max_clusters.argtypes = [i, i,
+                                                  ctypes.POINTER(i)]
+        lib.conv_dw_sm90_max_clusters.restype = ctypes.c_int
+    return lib
+
+
+_clusters = {}
+
+
+def dw_max_clusters(dev):
+    """``max_clusters`` of :func:`dw_schedule` for the card ``dev``,
+    asked of the CUDA runtime once per device."""
+    if dev not in _clusters:
+        lib, out = _lib_sm90(), {}
+        with torch.cuda.device(dev):
+            for bn in DW_BNS:
+                for s in range(1, DW_MAX_SPLITS + 1):
+                    n = ctypes.c_int(0)
+                    _raise_on(lib.conv_dw_sm90_max_clusters(
+                        bn, s, ctypes.byref(n)),
+                        f"cudaOccupancyMaxActiveClusters (bn={bn}, S={s})")
+                    out[(bn, s)] = n.value
+        _clusters[dev] = out
+    return _clusters[dev]
+
+
+_sms = {}
+
+
+def _num_sms(dev) -> int:
+    """The card's SM count, read once per device (a host-bound step calls
+    the wrappers hundreds of times)."""
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sms[dev]
+
+
 def _require(t: torch.Tensor, name: str, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -176,15 +246,84 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+# error codes of csrc/sm90.cuh beyond cudaError_t's range
+_ERR_NO_ENCODER, _ERR_ENCODE = 10000, 10001
+
+
 def _raise_on(rc: int, what: str):
+    if rc == _ERR_NO_ENCODER:
+        raise RuntimeError(f"{what} failed: libcuda has no "
+                           "cuTensorMapEncodeTiled")
+    if rc >= _ERR_ENCODE:
+        raise RuntimeError(f"{what} failed: cuTensorMapEncodeTiled returned "
+                           f"CUresult {rc - _ERR_ENCODE}")
     if rc != 0:
         raise RuntimeError(f"{what} failed: cudaError {rc}")
 
 
-def _dw_splits(tiles: int, steps: int, slots: int) -> int:
-    """Splits of the B·T rows for K3: the count in 1..16 whose grid fills
-    the card's block slots best (blocks / whole waves), the smallest on a
-    tie."""
+def route(x_shape, w_shape, dilation: int) -> str:
+    """Which design runs K3 and K4 for x (B, T, Cin) and w (K, Cin, Cout):
+    ``"sm90"`` when every channel count is a multiple of 8 (TMA's global
+    strides are multiples of 16 bytes) and every extent and tap reach fits
+    the kernels' int32 coordinates; ``"sm80"`` otherwise.  The sm90 boxes
+    are fixed (64 x 16 x 4 or 8, 64 x 128 x 1, 128 or 256 x 8 x 1), all
+    within TMA's 256 per dimension, so no other shape limit applies."""
+    b, t, cin = x_shape
+    k, _, cout = w_shape
+    fits = max(b, t + (k - 1) * dilation, cin, cout, k) < _INT32
+    return "sm90" if cin % 8 == 0 and cout % 8 == 0 and fits else "sm80"
+
+
+def dw_stages(b: int, t: int):
+    """K3 v2's contraction stages in order: the (b0, t0) origin of each
+    box of DW_BB batch rows x DW_TT frames (the kernel's step i is
+    ``(i // nt * DW_BB, i % nt * DW_TT)``)."""
+    nt = -(-t // DW_TT)
+    return [(i // nt * DW_BB, i % nt * DW_TT)
+            for i in range(-(-b // DW_BB) * nt)]
+
+
+def dw_ranges(steps: int, splits: int):
+    """The stage range [begin, end) of each cluster rank, as the kernel
+    computes it: balanced, so none is empty when splits <= steps."""
+    return [(r * steps // splits, (r + 1) * steps // splits)
+            for r in range(splits)]
+
+
+def dw_schedule(k: int, cin: int, cout: int, b: int, t: int,
+                max_clusters):
+    """K3 v2's schedule ``(bn, splits)``: the tile width (256 or 128
+    columns of Cout) and the cluster size S (1..8) whose grid runs in the
+    fewest, fullest waves at the least modelled cost.  Each output tile is
+    one cluster of S blocks; ``max_clusters[(bn, S)]`` is how many such
+    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``:
+    clusters are placed within a GPC, so an odd S can leave SMs idle).
+    Cost = waves x (stages per block + DW_FIXED_STAGES) x
+    (bn + DW_STAGE_COLS); ties go to fewer splits, then the wider tile."""
+    steps = len(dw_stages(b, t))
+    m_tiles = k * -(-cin // DW_BM)
+    best = None
+    for bn in DW_BNS:
+        tiles = m_tiles * -(-cout // bn)
+        for s in range(1, min(DW_MAX_SPLITS, steps) + 1):
+            slots = max_clusters.get((bn, s), 0)
+            if slots < 1:
+                continue
+            waves = -(-tiles // slots)
+            cost = (waves * (-(-steps // s) + DW_FIXED_STAGES)
+                    * (bn + DW_STAGE_COLS))
+            key = (cost, s, -bn)
+            if best is None or key < best[0]:
+                best = (key, (bn, s))
+    if best is None:
+        raise ValueError("no K3 v2 cluster fits the card")
+    return best[1]
+
+
+def sm80_dw_splits(tiles: int, steps: int, slots: int) -> int:
+    """Splits of the B·T rows for K3 v1 (the "sm80" route): the count in
+    1..16 whose grid fills the card's block slots best (blocks / whole
+    waves), the smallest on a tie."""
     best, best_fill = 1, 0.0
     for s in range(1, min(16, steps) + 1):
         blocks = tiles * s
@@ -215,10 +354,24 @@ def conv_fwd(x, w, dilation: int):
     return y
 
 
-def conv_dx(g, w, dilation: int):
+def _design(design, shape_route: str) -> str:
+    """The design a CUDA call runs: the route's, or one the caller names
+    (chip_smoke.py times both designs at one shape).  "sm80" takes every
+    shape; naming "sm90" for a shape its rule refuses raises."""
+    if design is None:
+        return shape_route
+    if design not in ("sm90", "sm80"):
+        raise ValueError(f"unknown design {design!r}")
+    if design == "sm90" and shape_route != "sm90":
+        raise ValueError("the sm90 kernels do not take this shape "
+                         "(route() says sm80)")
+    return design
+
+
+def conv_dx(g, w, dilation: int, design=None):
     """K4: dx (B, T, Cin) from the cotangent g (B, T, Cout).  CPU tensors
-    take :func:`conv_dx_reference`; CUDA tensors launch the kernel, or
-    raise."""
+    take :func:`conv_dx_reference`; CUDA tensors launch the kernel that
+    :func:`route` names (or ``design``), or raise."""
     if g.device.type == "cpu":
         return conv_dx_reference(g, w, dilation)
     dev = _kernel_device(g)
@@ -227,21 +380,30 @@ def conv_dx(g, w, dilation: int):
     bsz, t, _ = g.shape
     _require(g, "g", (bsz, t, cout), dev)
     _require(w, "w", (k, cin, cout), dev)
+    design = _design(design, route((bsz, t, cin), w.shape, dilation))
     dx = torch.empty((bsz, t, cin), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
-        rc = _lib().conv_dx_launch(g.data_ptr(), w.data_ptr(), dx.data_ptr(),
-                                   bsz, t, cin, cout, k, dilation,
-                                   _stream(dev))
-    _raise_on(rc, f"conv_dx_launch (k={k}, dilation={dilation})")
+        if design == "sm90":
+            rc = _lib_sm90().conv_dx_sm90_launch(
+                g.data_ptr(), w.data_ptr(), dx.data_ptr(), _num_sms(dev),
+                bsz, t, cin, cout, k, dilation, _stream(dev))
+        else:
+            rc = _lib().conv_dx_launch(g.data_ptr(), w.data_ptr(),
+                                       dx.data_ptr(), bsz, t, cin, cout, k,
+                                       dilation, _stream(dev))
+    _raise_on(rc, f"conv_dx {design} (k={k}, dilation={dilation})")
     launches["dx"] += 1
+    route_launches["dx_" + design] += 1
     return dx
 
 
-def conv_dw(x, g, k: int, dilation: int):
+def conv_dw(x, g, k: int, dilation: int, design=None):
     """K3: dW (K, Cin, Cout) in f32.  CPU tensors take
-    :func:`conv_dw_reference`; CUDA tensors launch the kernel (a split
-    over the B·T rows into an f32 workspace, then an ordered sum), or
-    raise."""
+    :func:`conv_dw_reference`; CUDA tensors launch the kernel that
+    :func:`route` names (or ``design``), or raise.  "sm90": one cluster launch, scheduled
+    by :func:`dw_schedule`; "sm80": a split over the B·T rows into an f32
+    workspace, then an ordered sum.  Both give the same bits on every
+    run."""
     if x.device.type == "cpu":
         return conv_dw_reference(x, g, k, dilation)
     dev = _kernel_device(x)
@@ -250,22 +412,31 @@ def conv_dw(x, g, k: int, dilation: int):
     _check(x.shape, (k, cin, cout), dilation, x.dtype)
     _require(x, "x", (bsz, t, cin), dev)
     _require(g, "g", (bsz, t, cout), dev)
-    steps = -(-bsz * t // _BK)
-    tiles = -(-k * cin // _BM) * -(-cout // _BN)
-    slots = (torch.cuda.get_device_properties(dev).multi_processor_count
-             * _BLOCKS_PER_SM)
-    split_steps = -(-steps // _dw_splits(tiles, steps, slots))
-    splits = -(-steps // split_steps)
+    design = _design(design, route(x.shape, (k, cin, cout), dilation))
     dw = torch.empty((k, cin, cout), dtype=torch.float32, device=dev)
-    ws = (torch.empty((splits, k * cin, cout), dtype=torch.float32,
-                      device=dev) if splits > 1 else None)
     with torch.cuda.device(dev):
-        rc = _lib().conv_dw_launch(
-            x.data_ptr(), g.data_ptr(), None if ws is None else ws.data_ptr(),
-            dw.data_ptr(), splits, split_steps * _BK, bsz, t, cin, cout, k,
-            dilation, _stream(dev))
-    _raise_on(rc, f"conv_dw_launch (k={k}, dilation={dilation})")
+        if design == "sm90":
+            bn, splits = dw_schedule(k, cin, cout, bsz, t,
+                                     dw_max_clusters(dev))
+            rc = _lib_sm90().conv_dw_sm90_launch(
+                x.data_ptr(), g.data_ptr(), dw.data_ptr(), bn, splits, bsz,
+                t, cin, cout, k, dilation, _stream(dev))
+        else:
+            steps = -(-bsz * t // _BK)
+            tiles = -(-k * cin // _BM) * -(-cout // _BN)
+            slots = _num_sms(dev) * _BLOCKS_PER_SM
+            split_steps = -(-steps // sm80_dw_splits(tiles, steps, slots))
+            splits = -(-steps // split_steps)
+            ws = (torch.empty((splits, k * cin, cout), dtype=torch.float32,
+                              device=dev) if splits > 1 else None)
+            rc = _lib().conv_dw_launch(
+                x.data_ptr(), g.data_ptr(),
+                None if ws is None else ws.data_ptr(), dw.data_ptr(), splits,
+                split_steps * _BK, bsz, t, cin, cout, k, dilation,
+                _stream(dev))
+    _raise_on(rc, f"conv_dw {design} (k={k}, dilation={dilation})")
     launches["dw"] += 1
+    route_launches["dw_" + design] += 1
     return dw
 
 
