@@ -14,24 +14,35 @@ Phases; any failure raises and the exit code is non-zero:
 3. K1 against its plain version on the card: the full-width ``no_dropout``
    stack at 32x1024 and at a ragged 32x777 with padded tails, and small
    batches of the ``prelu``, ``l2_lrelu``, ``tdnn_dilated`` and ``etdnn``
-   stacks; max error normalised by max|plain| must stay within 1e-2;
+   stacks, each layer on the design ``layer_route`` picks (K1 v5 "sm90",
+   ``csrc/fwd_sm90.cu``, for layers 1.. with channel counts a multiple of
+   8; K1 v4 "sm80", ``csrc/tdnn_stack.cu``, for layer 0 and etdnn's 1500
+   channels), and K1 v4 on every layer (``design="sm80"``) at 32x1024;
+   max error normalised by max|plain| must stay within 1e-2 and masked
+   frames must be exact zeros;
 4. the serving path at full width (``no_dropout``, 7,185 classes, random
    weights from ``--seed``): Kaldi feature and VAD arks written and read
    back, ``preprocess`` (sliding CMVN + VAD), ``XvectorExtractor`` in bf16
    with the fused kernel (the main path, with the launch counts zeroed just
-   before it and read just after) and without it, x-vectors compared
+   before it and read just after: layer 0 on "sm80", layers 1-4 on
+   "sm90") and without it, x-vectors compared
    (cosine ≥ 0.999), an f32 run on the card checked against the same
    extractor on the CPU on a small input, and the vectors written with
    ``ArkWriter`` and read back;
 5. timing lines tagged with the card: extraction throughput of both runs,
    the serving metric on one full 32x1024 batch (fused and unfused), a
    profiler breakdown of the fused batch (per kernel, per K1 layer, device
-   idle share), and K1 at 32x1024 against its plain version and its bound;
+   idle share), and K1 at 32x1024 in both designs (v5 by the rule, v4 on
+   every layer): per layer the kernel's profiled time beside the layer's
+   own bound and ``F.conv1d`` of the layer (a yardstick: conv only, no
+   epilogue), the kernels' sum apart from the wrapper's parameter folding,
+   and the plain version;
 6. K2, K3 and K4 (the SAME conv forward, weight gradient and input
-   gradient) against their plain versions on the card, K3 and K4 on the
-   design ``route`` picks ("sm90": ``csrc/conv_sm90.cu``): at the training
-   shapes (64x304, 512 -> 512, k=5 and k=7; there also K3 v1 and K4 v1,
-   the "sm80" design), one tile (1x64, 64 -> 64, k=3), ragged shapes
+   gradient) against their plain versions on the card, on the design
+   ``route`` picks ("sm90": K2 v2 ``csrc/fwd_sm90.cu``, K3 v2 and K4 v2
+   ``csrc/conv_sm90.cu``): at the training shapes (64x304, 512 -> 512,
+   k=5 and k=7; there also K2 v1, K3 v1 and K4 v1, the "sm80" design),
+   one tile (1x64, 64 -> 64, k=3), ragged shapes
    (B=6, T=301, 384 <-> 640 channels), dilated (k=3, d=2, 3, 4), two
    "sm80" shapes (channel counts off 8), and the autograd Function's dx
    and dW against autograd through the plain forward; bounds 1e-2 (bf16
@@ -44,19 +55,20 @@ Phases; any failure raises and the exit code is non-zero:
    ``ArchiveReader`` -> ``PrefetchLoader`` into
    ``Trainer.train_one_iteration`` twice (the main path: counts zeroed just
    before, read just after; exactly 6 kernel calls per minibatch step, two
-   dense blocks and one single step per pass, a falling loss, every K3
-   and K4 call on the "sm90" route, every K2 call through conv_bwd.cu's
-   shift_gemm_kernel<false>); then one
+   dense blocks and one single step per pass, a falling loss, every K2, K3
+   and K4 call on the "sm90" route); then one
    bf16 step fused against unfused (torch matmuls) from the same weights,
    and one f32 block of ``tiny`` on the card against the CPU;
 8. timing lines tagged with the card: the block step fused and unfused
    (ms per minibatch, audio-s/s), a profiler breakdown of one fused block,
    and K2, K3 and K4 at k=5 and k=7 against their plain versions, their
-   bounds and the one PyTorch call that computes the same function; K3
-   and K4 in both designs (v2 "sm90" and v1 "sm80"), with CUDA launches
-   per call and a host-inclusive time per call (100 back-to-back calls).
+   bounds and the one PyTorch call that computes the same function; each
+   in both designs (v2 "sm90" and v1 "sm80"), with CUDA launches per call
+   and a host-inclusive time per call (100 back-to-back calls).
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}`` (K1 and K2-K4 in the
+main path's designs, and rows for the "sm80" designs with their main-path
+launch counts); the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full f32
 (``torch.backends.cuda.matmul.allow_tf32 = False``) so the plain versions
 are true f32 referees.
@@ -97,9 +109,11 @@ TRAIN_F32_BOUND = 1e-3     # f32 block on the card vs the CPU, per tensor
 TRAIN_B, TRAIN_T = 64, 304            # the recipe's minibatch (bench.py)
 TRAIN_FULL, TRAIN_RAGGED_LEN = 32, 250
 TRAIN_CLASSES = 7185
-# the CUDA kernels of K2-K4 (csrc/conv_bwd.cu, csrc/conv_sm90.cu)
+# the CUDA kernels of K2-K4 (csrc/conv_bwd.cu, csrc/conv_sm90.cu,
+# csrc/fwd_sm90.cu) and of K1's layers (csrc/tdnn_stack.cu, fwd_sm90.cu)
 KERNEL_NAMES = ("shift_gemm_kernel", "dw_gemm_kernel", "dw_reduce_kernel",
-                "dw_sm90_kernel", "dx_sm90_kernel")
+                "dw_sm90_kernel", "dx_sm90_kernel", "fwd_sm90_kernel")
+K1_KERNEL_NAMES = ("tdnn_layer_kernel", "fwd_sm90_kernel")
 
 
 def fail(msg: str):
@@ -174,30 +188,43 @@ def stack_work(cfg, bsz, t):
 # ---------------------------------------------------------------------------
 
 def phase_kernel_checks(tt, TK, dev, seed):
-    cases = [("no_dropout", 32, 1024), ("no_dropout", 32, 777),
-             ("prelu", 3, 333), ("l2_lrelu", 3, 333),
-             ("tdnn_dilated", 3, 333), ("etdnn", 3, 333)]
+    """K1 against its plain version, each layer on the design the rule
+    picks (design None) or on v4 ("sm80"); returns the max-abs errors."""
+    cases = [("no_dropout", 32, 1024, None), ("no_dropout", 32, 1024, "sm80"),
+             ("no_dropout", 32, 777, None), ("prelu", 3, 333, None),
+             ("l2_lrelu", 3, 333, None), ("tdnn_dilated", 3, 333, None),
+             ("etdnn", 3, 333, None)]
     results = {}
-    for i, (name, bsz, t) in enumerate(cases):
+    for i, (name, bsz, t, design) in enumerate(cases):
         cfg, params, state = model(tt, name, seed + i, 10, dev)
         gen = torch.Generator().manual_seed(seed + 100 + i)
         x = torch.randn(bsz, t, cfg.feat_dim, generator=gen).to(dev)
         mask = tail_mask(bsz, t, gen).to(dev)
-        got = TK.fused_frame_stack(cfg, params, state, x, mask)
+        before = dict(TK.route_launches)
+        got = TK.fused_frame_stack(cfg, params, state, x, mask,
+                                   design=design)
         torch.cuda.synchronize()
+        designs = TK._layer_designs(cfg, design)
+        took = {n: TK.route_launches[n] - before[n] for n in before}
+        if took != {n: designs.count(n) for n in before}:
+            fail(f"K1 {name}: layers ran on {took}, expected {designs}")
         want = TK.fused_frame_stack_reference(cfg, params, state, x, mask)
+        label = (f"K1 {name} {bsz}x{t} "
+                 + ("/".join(designs) if design is None
+                    else f"all {design}"))
         if got.shape != want.shape or got.dtype != torch.float32:
-            fail(f"K1 {name} {bsz}x{t}: shape/dtype {tuple(got.shape)} "
+            fail(f"{label}: shape/dtype {tuple(got.shape)} "
                  f"{got.dtype} vs {tuple(want.shape)}")
         if not torch.isfinite(got).all():
-            fail(f"K1 {name} {bsz}x{t}: non-finite output")
+            fail(f"{label}: non-finite output")
         abs_err = float((got - want).abs().max())
         norm_err = abs_err / float(want.abs().max())
-        print(f"K1 check {name} {bsz}x{t}: max_abs_err={abs_err:.6g} "
-              f"normalised={norm_err:.3g} (bound {KERNEL_BOUND})")
+        print(f"K1 check {label.removeprefix('K1 ')}: max_abs_err="
+              f"{abs_err:.6g} normalised={norm_err:.3g} (bound "
+              f"{KERNEL_BOUND})")
         if norm_err > KERNEL_BOUND or bool(got[mask == 0].any()):
-            fail(f"K1 {name} {bsz}x{t} disagrees with its plain version")
-        results[(name, bsz, t)] = abs_err
+            fail(f"{label} disagrees with its plain version")
+        results[(name, bsz, t, design)] = abs_err
     return results
 
 
@@ -248,15 +275,27 @@ def phase_serving(tt, TE, TK, kio, dev, seed, tag):
 
         # the main path: counts zeroed just before, read just after
         TK.launches = 0
+        for n in TK.route_launches:
+            TK.route_launches[n] = 0
         xv_fused, s_fused = run_extractor(TE, cfg, params, state, utts,
                                           True, dev)
         main_launches = TK.launches
+        main_routes = dict(TK.route_launches)
         xv_plain, s_plain = run_extractor(TE, cfg, params, state, utts,
                                           False, dev)
         if main_launches == 0:
             fail("the fused run launched K1 no time")
         if TK.launches != main_launches:
             fail("the unfused run launched K1")
+        # layer 0 (f32 features) on v4, layers 1-4 on v5
+        designs = TK._layer_designs(cfg)
+        calls = main_launches // cfg.num_frame_layers
+        want_routes = {n: calls * designs.count(n) for n in main_routes}
+        print(f"serving: K1 layer launches on the main path {main_launches} "
+              f"({calls} stack calls), by design {main_routes} (expected "
+              f"{want_routes}: layers {designs})")
+        if main_routes != want_routes:
+            fail("serving: a K1 layer launch left its design")
         times = {True: [s_fused], False: [s_plain]}
         for i in range(EXTRACT_PAIRS - 1):   # alternate which runs first
             for fused in ((False, True) if i % 2 == 0 else (True, False)):
@@ -312,7 +351,7 @@ def phase_serving(tt, TE, TK, kio, dev, seed, tag):
               f"audio-s/s (median {med:.4f} s, quartiles {q1:.4f}-{q3:.4f} "
               f"s over {len(times[fused])} runs; {len(kept)} utterances, "
               f"{frames} frames) [{tag}]")
-    return main_launches
+    return main_launches, main_routes
 
 
 def phase_batch_timing(tt, TE, dev, seed, tag):
@@ -378,7 +417,7 @@ def phase_profile(tt, TE, dev, seed, tag):
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     busy_us = sum(sum(v) for v in by_name.values()) / runs
     layer_us = [e.time_range.elapsed_us() for e in dev_events
-                if "tdnn_layer_kernel" in e.name]
+                if any(k in e.name for k in K1_KERNEL_NAMES)]
     n = cfg.num_frame_layers
     if len(layer_us) == n * runs:
         per_layer = [statistics.median(layer_us[l::n]) for l in range(n)]
@@ -393,17 +432,68 @@ def phase_profile(tt, TE, dev, seed, tag):
                                  for name, v in top) + f" [{tag}]")
 
 
+def layer_work(cfg, bsz, t):
+    """(FLOP, bytes) of each K1 layer: 2·B·T·k·Cin·Cout; the layer's input
+    (f32 features and the mask for layer 0, bf16 after), its bf16 weights
+    and f32 vectors, the mask, and its output (f32 for the last layer,
+    bf16 before), each moved once."""
+    out, cin, n = [], cfg.feat_dim, cfg.num_frame_layers
+    for l, (k, c) in enumerate(zip(cfg.kernel_sizes, cfg.channels)):
+        flops = 2 * bsz * t * k * cin * c
+        nbytes = (bsz * t * cin * (4 if l == 0 else 2) + bsz * t * 4
+                  + k * cin * c * 2 + 4 * c * 4
+                  + bsz * t * c * (4 if l == n - 1 else 2))
+        out.append((flops, nbytes))
+        cin = c
+    return out
+
+
+def bound(flops, nbytes):
+    """(ms, "operations" or "bytes"): the larger of FLOP at the bf16 peak
+    and bytes at the memory rate."""
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    mem_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, mem_ms), ("operations" if ops_ms >= mem_ms
+                                 else "bytes")
+
+
+def k1_profile(TK, cfg, params, state, x, mask, design, calls=5):
+    """Device time of one stack call as the profiler sees it: each layer's
+    kernel (us, median over ``calls``) and the rest (the wrapper's
+    parameter folding: rsqrt, mul, sub and casts).  One more call goes
+    first and is left out (the profiler may drop the first device event
+    it records)."""
+    from torch.profiler import ProfilerActivity, profile
+    n = cfg.num_frame_layers
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls + 1):
+            TK.fused_frame_stack(cfg, params, state, x, mask, design=design)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    is_layer = [any(k in e.name for k in K1_KERNEL_NAMES) for e in events]
+    idx = [i for i, f in enumerate(is_layer) if f]
+    if len(idx) <= n * calls:
+        return None
+    kept = range(idx[-n * calls - 1] + 1, len(events))   # the last calls
+    layer = [events[i].time_range.elapsed_us() for i in kept if is_layer[i]]
+    rest = sum(events[i].time_range.elapsed_us() for i in kept
+               if not is_layer[i])
+    return [statistics.median(layer[l::n]) for l in range(n)], rest / calls
+
+
 def phase_k1_timing(tt, TK, dev, seed, tag):
+    """K1 at 32x1024 in both designs: the wrapper's time (CUDA events),
+    each layer's kernel time (profiler) beside its bound and F.conv1d of
+    the layer, the kernels' sum, and the plain version."""
     bsz, t = 32, 1024
     cfg, params, state = model(tt, "no_dropout", seed, 10, dev)
     gen = torch.Generator().manual_seed(seed + 7)
     x = torch.randn(bsz, t, cfg.feat_dim, generator=gen).to(dev)
     mask = tail_mask(bsz, t, gen).to(dev)
-    before = TK.launches
     iters, warmup = 20, 3
-    ms = cuda_ms(lambda: TK.fused_frame_stack(cfg, params, state, x, mask),
-                 iters, warmup)
-    per_call = (TK.launches - before) / (iters + warmup)
     plain_ms = cuda_ms(lambda: TK.fused_frame_stack_reference(
         cfg, params, state, x, mask), iters, warmup)
     # the extractor's unfused bf16 frame stack (torch matmuls), for context
@@ -411,18 +501,76 @@ def phase_k1_timing(tt, TK, dev, seed, tag):
         cfg, params, state, x, mask, compute_dtype=torch.bfloat16),
         iters, warmup)
     flops, nbytes = stack_work(cfg, bsz, t)
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
-    mem_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, mem_ms)
-    bound_by = "operations" if ops_ms >= mem_ms else "bytes"
-    print(f"timing K1 no_dropout {bsz}x{t}: {ms:.4f} ms/call, "
-          f"{per_call:g} launches/call, plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({flops:.4g} FLOP, "
-          f"{nbytes / 1e6:.1f} MB), {flops / ms / 1e9:.1f} TFLOP/s = "
-          f"{bound_ms / ms:.1%} of bound; unfused bf16 frame_stack "
-          f"{unfused_ms:.4f} ms [{tag}]")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    bound_ms, bound_by = bound(flops, nbytes)
+    layers = layer_work(cfg, bsz, t)
+    # F.conv1d of each layer on bf16 channels-first copies: a yardstick
+    # for the layer's conv alone (no epilogue, no mask)
+    conv_ms, cin = [], cfg.feat_dim
+    for l, (k, d, c) in enumerate(zip(cfg.kernel_sizes, cfg.dilations,
+                                      cfg.channels)):
+        xc = torch.randn(bsz, cin, t, generator=gen).to(dev, torch.bfloat16)
+        wc = params["frame"][l]["w"].to(torch.bfloat16).permute(2, 1, 0) \
+            .contiguous()
+        conv_ms.append(cuda_ms(lambda: F.conv1d(
+            xc, wc, padding=(k - 1) // 2 * d, dilation=d), iters, warmup))
+        cin = c
+    out = {}
+    for design in ("sm80", None, None, "sm80"):   # v4, v5, v5, v4
+        name = "sm80" if design else "rule"
+        before = TK.launches
+        ms = cuda_ms(lambda: TK.fused_frame_stack(
+            cfg, params, state, x, mask, design=design), iters, warmup)
+        per_call = (TK.launches - before) / (iters + warmup)
+        prof = k1_profile(TK, cfg, params, state, x, mask, design)
+        out.setdefault(name, []).append((ms, per_call, prof))
+    designs = {"rule": TK._layer_designs(cfg),
+               "sm80": TK._layer_designs(cfg, "sm80")}
+    res = {}
+    for name, runs in out.items():
+        ms = statistics.mean(r[0] for r in runs)
+        per_call = runs[0][1]
+        profs = [r[2] for r in runs if r[2] is not None]
+        label = ("v5 by the rule (" + "/".join(designs[name]) + ")"
+                 if name == "rule" else "v4 on every layer (all sm80)")
+        if profs:
+            layer_us = [statistics.mean(p[0][l] for p in profs)
+                        for l in range(cfg.num_frame_layers)]
+            fold_us = statistics.mean(p[1] for p in profs)
+            kernel_ms = sum(layer_us) / 1e3
+            print(f"timing K1 no_dropout {bsz}x{t} {label} per layer "
+                  "(profiled kernel us; bound us; share; F.conv1d us): "
+                  + "; ".join(
+                      f"L{l} {d} k={cfg.kernel_sizes[l]} {cfg.channels[l]}ch "
+                      f"{us:.1f}; {bound(*layers[l])[0] * 1e3:.1f} by "
+                      f"{bound(*layers[l])[1]}; "
+                      f"{bound(*layers[l])[0] * 1e3 / us:.1%}; "
+                      f"{conv_ms[l] * 1e3:.1f}"
+                      for l, (us, d) in enumerate(zip(layer_us,
+                                                      designs[name])))
+                  + f" [{tag}]")
+        else:
+            layer_us, fold_us, kernel_ms = None, None, None
+            print(f"timing K1 {label}: the profiler recorded no layer "
+                  f"kernels; kernel-only time not measured [{tag}]")
+        print(f"timing K1 no_dropout {bsz}x{t} {label}: kernels "
+              + (f"{kernel_ms:.4f} ms/call = {flops / kernel_ms / 1e9:.1f} "
+                 f"TFLOP/s = {bound_ms / kernel_ms:.1%} of bound; wrapper "
+                 f"{ms:.4f} ms/call (CUDA events, parameter folding "
+                 f"{fold_us:.1f} us of device time per call included), "
+                 if kernel_ms else f"not measured; wrapper {ms:.4f} ms, ")
+              + f"{per_call:g} launches/call, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.4g} FLOP, "
+              f"{nbytes / 1e6:.1f} MB); unfused bf16 frame_stack "
+              f"{unfused_ms:.4f} ms [{tag}]")
+        res[name] = {"ms": kernel_ms if kernel_ms else ms,
+                     "wrapper_ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "layers_us": layer_us, "fold_us": fold_us}
+    v4, v5 = res["sm80"], res["rule"]
+    print(f"timing K1 no_dropout {bsz}x{t}: v5 kernels {v5['ms']:.4f} ms vs "
+          f"v4 {v4['ms']:.4f} ms = {v4['ms'] / v5['ms']:.2f}x; wrappers "
+          f"{v5['wrapper_ms']:.4f} vs {v4['wrapper_ms']:.4f} ms [{tag}]")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -457,8 +605,8 @@ def phase_conv_checks(CB, dev, seed):
              ("dilated", 3, 4, 8, 300, 512, 512),
              ("off-8", 3, 2, 6, 301, 12, 20),
              ("off-8", 5, 1, 4, 301, 100, 36)]
-    train_err = {"fwd": 0.0, "dw": 0.0, "dx": 0.0, "dw_sm80": 0.0,
-                 "dx_sm80": 0.0}
+    train_err = {"fwd": 0.0, "dw": 0.0, "dx": 0.0, "fwd_sm80": 0.0,
+                 "dw_sm80": 0.0, "dx_sm80": 0.0}
     for i, (kind, k, d, b, t, cin, cout) in enumerate(cases):
         x, w, g = conv_inputs(b, t, cin, cout, k, dev, seed + 200 + i)
         design = CB.route(x.shape, w.shape, d)
@@ -468,25 +616,26 @@ def phase_conv_checks(CB, dev, seed):
         got = {"fwd": CB.conv_fwd(x, w, d), "dw": CB.conv_dw(x, g, k, d),
                "dx": CB.conv_dx(g, w, d)}
         if kind == "train":   # v1 at the same shapes
+            got["fwd_sm80"] = CB.conv_fwd(x, w, d, design="sm80")
             got["dw_sm80"] = CB.conv_dw(x, g, k, d, design="sm80")
             got["dx_sm80"] = CB.conv_dx(g, w, d, design="sm80")
         torch.cuda.synchronize()
         took = {n: CB.route_launches[n] - before[n] for n in before}
-        if (took[f"dw_{design}"], took[f"dx_{design}"]) != (1, 1):
-            fail(f"conv {kind}: K3/K4 did not run on the {design} route "
+        if any(took[f"{n}_{design}"] != 1 for n in ("fwd", "dw", "dx")):
+            fail(f"conv {kind}: K2/K3/K4 did not run on the {design} route "
                  f"({took})")
         want = {"fwd": CB.conv_fwd_reference(x, w, d),
                 "dw": CB.conv_dw_reference(x, g, k, d),
                 "dx": CB.conv_dx_reference(g, w, d)}
-        want["dw_sm80"], want["dx_sm80"] = want["dw"], want["dx"]
         shapes = {"fwd": ((b, t, cout), torch.bfloat16),
                   "dw": ((k, cin, cout), torch.float32),
                   "dx": ((b, t, cin), torch.bfloat16)}
-        shapes["dw_sm80"], shapes["dx_sm80"] = shapes["dw"], shapes["dx"]
+        for n in ("fwd", "dw", "dx"):
+            want[f"{n}_sm80"], shapes[f"{n}_sm80"] = want[n], shapes[n]
         for name in got:
-            kernel = {"fwd": "K2", "dw": f"K3 {design}",
-                      "dx": f"K4 {design}", "dw_sm80": "K3 sm80",
-                      "dx_sm80": "K4 sm80"}[name]
+            kernel = {"fwd": f"K2 {design}", "dw": f"K3 {design}",
+                      "dx": f"K4 {design}", "fwd_sm80": "K2 sm80",
+                      "dw_sm80": "K3 sm80", "dx_sm80": "K4 sm80"}[name]
             label = (f"conv {kernel} {kind} k={k} d={d} {b}x{t} "
                      f"{cin}->{cout}")
             if (tuple(got[name].shape), got[name].dtype) != shapes[name]:
@@ -631,15 +780,14 @@ def phase_training(TR, TA, CB, schedules, dev, seed, tag, tmp):
     if launches != want:
         fail(f"train: kernel launch counts are not {3 * wide} per "
              "minibatch step")
-    # K3 and K4 by design; K2 has one (conv_bwd.cu shift_gemm_kernel<false>,
-    # one launch per conv_fwd call)
-    want_routes = {"dw_sm90": want["dw"], "dx_sm90": want["dx"],
-                   "dw_sm80": 0, "dx_sm80": 0}
-    print(f"train: K3/K4 calls by design on the main path {routes} "
-          f"(expected {want_routes}); K2 calls through "
-          f"shift_gemm_kernel<false>: {launches['fwd']}")
+    # every K2, K3 and K4 call on the sm90 route
+    want_routes = {f"{n}_{d}": want[n] if d == "sm90" else 0
+                   for n in ("fwd", "dw", "dx") for d in ("sm90", "sm80")}
+    print(f"train: K2/K3/K4 calls by design on the main path {routes} "
+          f"(expected {want_routes})")
     if routes != want_routes:
-        fail("train: a K3 or K4 call of the main path left the sm90 route")
+        fail("train: a K2, K3 or K4 call of the main path left the sm90 "
+             "route")
 
     # one bf16 step, fused against unfused, from the same fresh weights
     from xvector_tpu_torch.models.convert import tree_leaves, tree_map
@@ -765,7 +913,7 @@ def phase_train_timing(TR, dev, seed, tag, tmp):
         return
 
     def group(name):
-        if "shift_gemm_kernel<false>" in name:
+        if "shift_gemm_kernel<false>" in name or "fwd_sm90_kernel" in name:
             return "K2 conv fwd"
         if "shift_gemm_kernel<true>" in name:
             return "K4 conv dx"
@@ -866,9 +1014,9 @@ def phase_conv_timing(CB, dev, seed, tag):
     """K2, K3 and K4 at the training shapes: ms per call, CUDA launches
     per call, the plain version, the bound, and the one PyTorch (cuDNN)
     call that computes the same function on channels-first copies made
-    outside the timed region.  K3 and K4 in both designs, v2 ("sm90", the
-    route these shapes take) and v1 ("sm80"), with a host-inclusive time
-    per call of each."""
+    outside the timed region.  Each in both designs, v2 ("sm90", the route
+    these shapes take) and v1 ("sm80"), with a host-inclusive time per
+    call of each."""
     out = {}
     cin = cout = 512
     for k in (5, 7):
@@ -893,15 +1041,17 @@ def phase_conv_timing(CB, dev, seed, tag):
                       lambda r: r[1].permute(2, 1, 0)),
                "dx": (lambda: lib_bwd([True, False, False]),
                       lambda r: r[0].transpose(1, 2))}
-        kern = {("fwd", None): lambda: CB.conv_fwd(x, w, 1)}
+        kern = {}
         for design in ("sm90", "sm80"):
+            kern[("fwd", design)] = (
+                lambda d=design: CB.conv_fwd(x, w, 1, design=d))
             kern[("dw", design)] = (
                 lambda d=design: CB.conv_dw(x, g, k, 1, design=d))
             kern[("dx", design)] = (
                 lambda d=design: CB.conv_dx(g, w, 1, design=d))
         for name in ("fwd", "dw", "dx"):
             lib_call, lib_view = lib[name]
-            designs = (None,) if name == "fwd" else ("sm80", "sm90")
+            designs = ("sm80", "sm90")
             # the library call computes the same function
             _, lib_err = norm_err(lib_view(lib_call()),
                                   kern[(name, designs[-1])]())
@@ -924,7 +1074,7 @@ def phase_conv_timing(CB, dev, seed, tag):
                 kernel = {"fwd": "K2", "dw": "K3", "dx": "K4"}[name]
                 host = statistics.mean(hosts[d])
                 per_call = device_launches(kern[(name, d)], KERNEL_NAMES)
-                print(f"timing conv {kernel}{'' if d is None else ' ' + d} "
+                print(f"timing conv {kernel} {d} "
                       f"k={k} {TRAIN_B}x{TRAIN_T} {cin}->{cout}: "
                       f"{ms[d]:.4f} ms/call, {per_call} CUDA launches/call, "
                       f"host-inclusive {host:.4f} ms/call (100 back-to-back "
@@ -935,18 +1085,17 @@ def phase_conv_timing(CB, dev, seed, tag):
                       f"{nbytes / 1e6:.1f} MB), "
                       f"{flops / ms[d] / 1e9:.1f} TFLOP/s = "
                       f"{bound_ms / ms[d]:.1%} of bound [{tag}]")
-                key = name if d in (None, "sm90") else f"{name}_{d}"
+                key = name if d == "sm90" else f"{name}_{d}"
                 out[(key, k)] = {"ms": ms[d], "plain_ms": plain_ms,
                                  "library_ms": lib_ms, "bound_ms": bound_ms,
                                  "bound_by": bound_by, "host_ms": host}
-            if name != "fwd":
-                v1, v2 = out[(f"{name}_sm80", k)], out[(name, k)]
-                print(f"timing conv {kernel} k={k}: v2 (sm90) "
-                      f"{v2['ms']:.4f} ms vs v1 (sm80) {v1['ms']:.4f} ms = "
-                      f"{v1['ms'] / v2['ms']:.2f}x; host-inclusive v2 "
-                      f"{v2['host_ms']:.4f} vs v1 {v1['host_ms']:.4f} ms "
-                      f"({v2['host_ms'] / v1['host_ms'] - 1:+.1%}); cuDNN "
-                      f"{lib_ms:.4f} ms [{tag}]")
+            v1, v2 = out[(f"{name}_sm80", k)], out[(name, k)]
+            print(f"timing conv {kernel} k={k}: v2 (sm90) "
+                  f"{v2['ms']:.4f} ms vs v1 (sm80) {v1['ms']:.4f} ms = "
+                  f"{v1['ms'] / v2['ms']:.2f}x; host-inclusive v2 "
+                  f"{v2['host_ms']:.4f} vs v1 {v1['host_ms']:.4f} ms "
+                  f"({v2['host_ms'] / v1['host_ms'] - 1:+.1%}); cuDNN "
+                  f"{lib_ms:.4f} ms = {lib_ms / v2['ms']:.2f}x v2 [{tag}]")
     return out
 
 
@@ -989,7 +1138,7 @@ def main(argv=None) -> int:
     errs = phase_kernel_checks(tt, TK, dev, args.seed)
 
     # 4. the serving path
-    main_launches = phase_serving(tt, TE, TK, kio, dev, args.seed, tag)
+    _, main_routes = phase_serving(tt, TE, TK, kio, dev, args.seed, tag)
 
     # 5. the serving metric at 32x1024, then K1 at the same shape
     phase_batch_timing(tt, TE, dev, args.seed, tag)
@@ -1001,46 +1150,59 @@ def main(argv=None) -> int:
 
     # 7. the training path, then 8. its timings
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches, routes = phase_training(TR, TA, CB, schedules,
-                                                dev, args.seed, tag, tmp)
+        _, routes = phase_training(TR, TA, CB, schedules, dev, args.seed,
+                                   tag, tmp)
         phase_train_timing(TR, dev, args.seed, tag, tmp)
     conv = phase_conv_timing(CB, dev, args.seed, tag)
 
-    kernels = [{
-        "name": "tdnn_frame_stack",
-        "route": "cuda",
-        "source": "xvector_tpu_torch/csrc/tdnn_stack.cu",
-        "replaces": "xvector_tpu/ops/tdnn_kernel.py:99",
-        "launches": main_launches,
-        "max_abs_err": errs[("no_dropout", 32, 1024)],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        # no single PyTorch call computes the whole stack
-        "library_ms": None,
-    }]
+    # K1: the main path runs layer 0 on v4 and layers 1-4 on v5; "ms" is the
+    # layer kernels' own time per stack call (profiler), without the
+    # wrapper's parameter folding.  Each row counts the main path's launches
+    # of its own source: v5's (layers 1-4) and v4's (layer 0); the sm80
+    # row's times are v4 on every layer.
+    kernels = []
+    for key, label, source, launches in (
+            ("rule", "tdnn_frame_stack", "fwd_sm90.cu", main_routes["sm90"]),
+            ("sm80", "tdnn_frame_stack_sm80", "tdnn_stack.cu",
+             main_routes["sm80"])):
+        kernels.append({
+            "name": label,
+            "route": "cuda",
+            "source": f"xvector_tpu_torch/csrc/{source}",
+            "replaces": "xvector_tpu/ops/tdnn_kernel.py:99",
+            "launches": launches,
+            "max_abs_err": errs[("no_dropout", 32, 1024,
+                                 None if key == "rule" else "sm80")],
+            **{m: k1[key][m] for m in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")},
+            # no single PyTorch call computes the whole stack
+            "library_ms": None,
+            "wrapper_ms": k1[key]["wrapper_ms"],
+            "layers_us": k1[key]["layers_us"],
+            "shapes": "no_dropout 32x1024 (ms: the layer kernels per call)",
+            **({"launches_by_design": main_routes} if key == "rule" else {}),
+        })
     # K2-K4: the main path makes one k=5 and one k=7 call of each per
     # step, so each time below is the mean of the two per-call times.
-    # conv_dw and conv_dx are the sm90 designs the main path runs; the
-    # sm80 designs stay for channel counts off 8 (0 main-path launches).
-    for key, label, source, line, launches in (
-            ("fwd", "conv_fwd", "conv_bwd.cu", 114, train_launches["fwd"]),
-            ("dw", "conv_dw", "conv_sm90.cu", 174, routes["dw_sm90"]),
-            ("dx", "conv_dx", "conv_sm90.cu", 201, routes["dx_sm90"]),
-            ("dw_sm80", "conv_dw_sm80", "conv_bwd.cu", 174,
-             routes["dw_sm80"]),
-            ("dx_sm80", "conv_dx_sm80", "conv_bwd.cu", 201,
-             routes["dx_sm80"])):
+    # The sm90 designs are the main path's; the sm80 designs stay for
+    # channel counts off 8 (0 main-path launches).
+    for key, label, source, line in (
+            ("fwd", "conv_fwd", "fwd_sm90.cu", 114),
+            ("dw", "conv_dw", "conv_sm90.cu", 174),
+            ("dx", "conv_dx", "conv_sm90.cu", 201),
+            ("fwd_sm80", "conv_fwd_sm80", "conv_bwd.cu", 114),
+            ("dw_sm80", "conv_dw_sm80", "conv_bwd.cu", 174),
+            ("dx_sm80", "conv_dx_sm80", "conv_bwd.cu", 201)):
         per_k = [conv[(key, k)] for k in (5, 7)]
         mean = {m: sum(c[m] for c in per_k) / 2
                 for m in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        route = key if "_" in key else f"{key}_sm90"
         kernels.append({
             "name": label,
             "route": "cuda",
             "source": f"xvector_tpu_torch/csrc/{source}",
             "replaces": f"xvector_tpu/ops/conv_bwd.py:{line}",
-            "launches": launches,
+            "launches": routes[route],
             "max_abs_err": conv_errs[key],
             **mean,
             "bound_by": per_k[0]["bound_by"],

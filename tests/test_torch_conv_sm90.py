@@ -120,11 +120,12 @@ def test_plain_versions_leave_route_counts_at_zero():
     x = torch.from_numpy(rng.randn(2, 9, 16).astype(np.float32))
     w = torch.from_numpy(rng.randn(3, 16, 8).astype(np.float32))
     g = torch.from_numpy(rng.randn(2, 9, 8).astype(np.float32))
+    CB.conv_fwd(x, w, 1)
     CB.conv_dx(g, w, 1)
     CB.conv_dw(x, g, 3, 1)
     assert (dict(CB.route_launches), dict(CB.launches)) == before
-    assert set(CB.route_launches) == {"dw_sm90", "dw_sm80", "dx_sm90",
-                                      "dx_sm80"}
+    assert set(CB.route_launches) == {"fwd_sm90", "fwd_sm80", "dw_sm90",
+                                      "dw_sm80", "dx_sm90", "dx_sm80"}
 
 
 def test_encoder_errors_are_named():

@@ -131,7 +131,8 @@ def test_conv_kernels_match_plain(k, d, b, t, cin, cout, cuda_device):
     assert {n: CB.launches[n] - before[n] for n in before} == \
         {"fwd": 1, "dw": 1, "dx": 1}
     design = CB.route(x.shape, w.shape, d)
-    assert _routes_delta(routes) == {"dx_" + design: 1, "dw_" + design: 1}
+    assert _routes_delta(routes) == {"fwd_" + design: 1, "dx_" + design: 1,
+                                     "dw_" + design: 1}
     assert (y.dtype, dx.dtype, dw.dtype) == (torch.bfloat16, torch.bfloat16,
                                              torch.float32)
     assert _err(y, CB.conv_fwd_reference(x, w, d)) <= BOUND
@@ -165,6 +166,77 @@ def test_conv_sm90_kernels_match_plain(k, d, b, t, cin, cout, cuda_device):
     assert (dx.dtype, dw.dtype) == (torch.bfloat16, torch.float32)
     assert _err(dx, CB.conv_dx_reference(g, w, d)) <= BOUND
     assert _err(dw, CB.conv_dw_reference(x, g, k, d)) <= DW_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d,b,t,cin,cout", [
+    (3, 1, 1, 64, 64, 64),        # one tile: brings up the descriptors
+    (5, 1, 64, 304, 512, 512),    # the training shapes
+    (7, 1, 64, 304, 512, 512),
+    (5, 1, 6, 301, 384, 640),     # ragged B, T, and C off the tiles
+    (7, 1, 6, 301, 640, 384),
+    (3, 2, 8, 300, 512, 512),     # dilated
+    (3, 3, 8, 300, 512, 512),
+    (3, 4, 8, 300, 512, 512),
+    (5, 1, 3, 37, 40, 512),       # Cin = 40 (feat_dim 40 front layer)
+])
+def test_conv_fwd_sm90_matches_plain(k, d, b, t, cin, cout, cuda_device):
+    """K2 v2 (the "sm90" route, csrc/fwd_sm90.cu) and K2 v1 forced through
+    design="sm80" against the plain version."""
+    assert CB.route((b, t, cin), (k, cin, cout), d) == "sm90"
+    x, w, _ = _conv_inputs(b, t, cin, cout, k, cuda_device)
+    before = dict(CB.route_launches)
+    y, y1 = CB.conv_fwd(x, w, d), CB.conv_fwd(x, w, d, design="sm80")
+    torch.cuda.synchronize()
+    assert _routes_delta(before) == {"fwd_sm90": 1, "fwd_sm80": 1}
+    want = CB.conv_fwd_reference(x, w, d)
+    assert y.dtype == y1.dtype == torch.bfloat16
+    assert y.shape == (b, t, cout)
+    assert _err(y, want) <= BOUND
+    assert _err(y1, want) <= BOUND
+
+
+@pytest.mark.cuda
+def test_conv_function_routes_every_call_to_sm90(cuda_device):
+    """One forward and backward of the autograd Function at a wide shape:
+    K2, K3 and K4 each run once, all on the "sm90" route."""
+    x, w, g = _conv_inputs(4, 45, 128, 96, 5, cuda_device, seed=2)
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    before = dict(CB.route_launches)
+    CB.conv1d_same_fused_bwd(xs, ws, 1).backward(g)
+    torch.cuda.synchronize()
+    assert _routes_delta(before) == {"fwd_sm90": 1, "dw_sm90": 1,
+                                     "dx_sm90": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,b,t", [("no_dropout", 32, 777),
+                                      ("prelu", 3, 333), ("etdnn", 3, 333),
+                                      ("tiny", 2, 50)])
+def test_kernel_routes_layers_by_rule(name, b, t, cuda_device):
+    """K1 v5 ("sm90") on every layer layer_route gives it, K1 v4 on the
+    rest; and K1 v4 on every layer through design="sm80"."""
+    cfg, params, state = _model(name, cuda_device, seed=4)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(b, t, cfg.feat_dim, generator=g).to(cuda_device)
+    mask = torch.ones(b, t)
+    mask[-1, t // 2:] = 0.0
+    mask = mask.to(cuda_device)
+    cins = (cfg.feat_dim,) + cfg.channels[:-1]
+    rule = [TK.layer_route(l, c, o)
+            for l, (c, o) in enumerate(zip(cins, cfg.channels))]
+    want = TK.fused_frame_stack_reference(cfg, params, state, x, mask)
+    for design, designs in ((None, rule), ("sm80", ["sm80"] * len(rule))):
+        before = dict(TK.route_launches)
+        got = TK.fused_frame_stack(cfg, params, state, x, mask,
+                                   design=design)
+        torch.cuda.synchronize()
+        assert {n: TK.route_launches[n] - before[n] for n in before} == {
+            n: designs.count(n) for n in ("sm90", "sm80")}
+        assert got.dtype == torch.float32
+        assert got.shape == want.shape
+        assert float((got - want).abs().max() / want.abs().max()) <= BOUND
+        assert not got[mask == 0].any()
 
 
 @pytest.mark.cuda
@@ -226,5 +298,6 @@ def test_tiny_train_step_launch_counts(cuda_device, tmp_path):
                        1.0, 1.0, torch.Generator(cuda_device))
     torch.cuda.synchronize()
     assert CB.launches == {"fwd": 1, "dw": 1, "dx": 1}
-    assert _routes_delta(routes) == {"dw_sm90": 1, "dx_sm90": 1}
+    assert _routes_delta(routes) == {"fwd_sm90": 1, "dw_sm90": 1,
+                                     "dx_sm90": 1}
     assert np.isfinite(float(m["loss"]))

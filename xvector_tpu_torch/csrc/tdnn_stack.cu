@@ -1,4 +1,9 @@
-// Eval-mode TDNN frame stack, one layer per launch, for Hopper (sm_90a).
+// Eval-mode TDNN frame stack, one layer per launch, for Hopper (sm_90a):
+// K1 v4, the "sm80" design of ops/tdnn_kernel.py:layer_route.  It serves
+// layer 0 of every stack (f32 features, feat_dim 23 or 40) and any layer
+// with a channel count off 8 (etdnn's 1500); every other layer runs K1 v5
+// (fwd_sm90.cu: wgmma, TMA, the forward K2 v2 shares).  design="sm80"
+// forces this kernel on every layer.
 //
 // Replaces the TPU kernel xvector_tpu/ops/tdnn_kernel.py:_layer_kernel /
 // _fused_call (K1), which runs the whole 5-layer stack in one Pallas call
@@ -39,8 +44,7 @@
 // and hand over bf16 activations through device memory; that is exact with
 // respect to K1, which consumes every intermediate only through a bf16
 // cast.  The last layer writes f32.  A one-launch stack with on-chip
-// intermediates, and wgmma/TMA in place of mma.sync/cp.async, are later
-// work.
+// intermediates is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "build", "load"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("tdnn_stack.cu", "conv_bwd.cu", "conv_sm90.cu")
+SOURCES = ("tdnn_stack.cu", "conv_bwd.cu", "conv_sm90.cu", "fwd_sm90.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

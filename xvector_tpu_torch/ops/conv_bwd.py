@@ -20,16 +20,20 @@ Dispatch is by device.  CPU tensors take the plain PyTorch versions
 (:func:`conv_fwd_reference`, :func:`conv_dw_reference`,
 :func:`conv_dx_reference`); CUDA tensors launch a kernel or raise.
 :func:`supports` is the card's rule: bf16 operands of matching shapes.
-K2 runs ``csrc/conv_bwd.cu``.  K3 and K4 have two designs, picked by the
-written shape rule :func:`route`: ``"sm90"`` (``csrc/conv_sm90.cu``:
-wgmma, TMA, warp specialisation; K3 one cluster launch with an ordered
-reduction in distributed shared memory, scheduled by
-:func:`dw_schedule`) for every channel count a multiple of 8, and
-``"sm80"`` (``csrc/conv_bwd.cu``: mma.sync, cp.async) for the rest.
+Each kernel has two designs, picked by the written shape rule
+:func:`route`: ``"sm90"`` for every channel count a multiple of 8 (every
+wide zoo layer), ``"sm80"`` for the rest.  ``"sm90"`` is written for
+Hopper's own instructions (wgmma, TMA, warp specialisation): K2 v2 is
+``csrc/fwd_sm90.cu``'s persistent forward with no epilogue (the kernel K1
+v5's layers share), K3 v2 and K4 v2 are ``csrc/conv_sm90.cu`` (K3 one
+cluster launch with an ordered reduction in distributed shared memory,
+scheduled by :func:`dw_schedule`; K4 a persistent grid).  ``"sm80"`` is
+``csrc/conv_bwd.cu`` (mma.sync, cp.async; K2 and K4 its
+``shift_gemm_kernel``).  Each wrapper takes ``design=`` to force one.
 
 :data:`launches` counts kernel calls, one per call of each kernel (a K3
 v1 call with a split reduction is two CUDA launches and counts once);
-:data:`route_launches` counts the K3 and K4 calls by design.
+:data:`route_launches` counts the calls of each kernel by design.
 """
 
 from __future__ import annotations
@@ -49,11 +53,13 @@ __all__ = ["conv1d_same_fused_bwd", "conv_fwd", "conv_dw", "conv_dx",
 
 SOURCE = "conv_bwd.cu"
 SOURCE_SM90 = "conv_sm90.cu"
+SOURCE_FWD = "fwd_sm90.cu"
 
-# Kernel calls so far, per kernel and, for K3 and K4, per design;
-# chip_smoke.py zeroes and reads them.
+# Kernel calls so far, per kernel and per design; chip_smoke.py zeroes and
+# reads them.
 launches = {"fwd": 0, "dw": 0, "dx": 0}
-route_launches = {"dw_sm90": 0, "dw_sm80": 0, "dx_sm90": 0, "dx_sm80": 0}
+route_launches = {"fwd_sm90": 0, "fwd_sm80": 0, "dw_sm90": 0, "dw_sm80": 0,
+                  "dx_sm90": 0, "dx_sm80": 0}
 
 _BM = _BN = 128        # K3 v1 output tile (csrc/conv_bwd.cu)
 _BK = 64               # K3 v1 rows per pipeline step
@@ -178,6 +184,21 @@ def _lib_sm90() -> ctypes.CDLL:
     return lib
 
 
+def _lib_fwd() -> ctypes.CDLL:
+    """``csrc/fwd_sm90.cu``: K2 v2 and K1 v5's layers."""
+    lib = _build.load(SOURCE_FWD)
+    if lib.conv_fwd_sm90_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.conv_fwd_sm90_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+        lib.conv_fwd_sm90_launch.restype = ctypes.c_int
+        lib.tdnn_layer_sm90_launch.argtypes = [
+            p, p, p, p, p, p, p, p, i,             # x .. out, out_f32
+            i, i, i, i, i, i, i, i, ctypes.c_float,  # blocks B T Cin Cout K
+            p]                                     # dil act alpha, stream
+        lib.tdnn_layer_sm90_launch.restype = ctypes.c_int
+    return lib
+
+
 _clusters = {}
 
 
@@ -262,7 +283,8 @@ def _raise_on(rc: int, what: str):
 
 
 def route(x_shape, w_shape, dilation: int) -> str:
-    """Which design runs K3 and K4 for x (B, T, Cin) and w (K, Cin, Cout):
+    """Which design runs K2, K3 and K4 for x (B, T, Cin) and w (K, Cin,
+    Cout):
     ``"sm90"`` when every channel count is a multiple of 8 (TMA's global
     strides are multiples of 16 bytes) and every extent and tap reach fits
     the kernels' int32 coordinates; ``"sm80"`` otherwise.  The sm90 boxes
@@ -333,9 +355,10 @@ def sm80_dw_splits(tiles: int, steps: int, slots: int) -> int:
     return best
 
 
-def conv_fwd(x, w, dilation: int):
+def conv_fwd(x, w, dilation: int, design=None):
     """K2: y (B, T, Cout).  CPU tensors take :func:`conv_fwd_reference`;
-    CUDA tensors launch the kernel, or raise."""
+    CUDA tensors launch the kernel that :func:`route` names (or
+    ``design``), or raise."""
     if x.device.type == "cpu":
         return conv_fwd_reference(x, w, dilation)
     dev = _kernel_device(x)
@@ -344,27 +367,35 @@ def conv_fwd(x, w, dilation: int):
     k, _, cout = w.shape
     _require(x, "x", (bsz, t, cin), dev)
     _require(w, "w", (k, cin, cout), dev)
+    design = _design(design, route(x.shape, w.shape, dilation))
     y = torch.empty((bsz, t, cout), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
-        rc = _lib().conv_fwd_launch(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                                    bsz, t, cin, cout, k, dilation,
-                                    _stream(dev))
-    _raise_on(rc, f"conv_fwd_launch (k={k}, dilation={dilation})")
+        if design == "sm90":
+            rc = _lib_fwd().conv_fwd_sm90_launch(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), _num_sms(dev), bsz,
+                t, cin, cout, k, dilation, _stream(dev))
+        else:
+            rc = _lib().conv_fwd_launch(x.data_ptr(), w.data_ptr(),
+                                        y.data_ptr(), bsz, t, cin, cout, k,
+                                        dilation, _stream(dev))
+    _raise_on(rc, f"conv_fwd {design} (k={k}, dilation={dilation})")
     launches["fwd"] += 1
+    route_launches["fwd_" + design] += 1
     return y
 
 
 def _design(design, shape_route: str) -> str:
     """The design a CUDA call runs: the route's, or one the caller names
     (chip_smoke.py times both designs at one shape).  "sm80" takes every
-    shape; naming "sm90" for a shape its rule refuses raises."""
+    shape; naming "sm90" for a shape its rule refuses raises.  K1's layers
+    (ops/tdnn_kernel.py) take the same rule."""
     if design is None:
         return shape_route
     if design not in ("sm90", "sm80"):
         raise ValueError(f"unknown design {design!r}")
     if design == "sm90" and shape_route != "sm90":
         raise ValueError("the sm90 kernels do not take this shape "
-                         "(route() says sm80)")
+                         "(its route is sm80)")
     return design
 
 

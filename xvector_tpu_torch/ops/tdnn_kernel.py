@@ -8,9 +8,15 @@ the last layer's output is f32 (B, T, channels[-1]).
 * :func:`fused_frame_stack_reference` is the plain PyTorch version with
   exactly K1's numerics (the CPU path and the referee on the card);
 * :func:`fused_frame_stack` dispatches: CPU tensors take the plain version,
-  CUDA tensors launch the hand-written kernel in ``csrc/tdnn_stack.cu``
-  (one launch per layer) or raise;
-* :data:`launches` counts kernel launches.
+  CUDA tensors launch one hand-written kernel per layer, or raise;
+* :func:`layer_route` is the written rule that picks each layer's design:
+  ``"sm90"`` (K1 v5, ``csrc/fwd_sm90.cu``: the wgmma/TMA forward that K2
+  v2 shares, with K1's epilogue) for a layer after the first whose channel
+  counts are multiples of 8; ``"sm80"`` (K1 v4, ``csrc/tdnn_stack.cu``:
+  mma.sync, cp.async) for layer 0, which reads the f32 features, and for
+  channel counts off 8 (etdnn's 1500).  ``design=`` forces one;
+* :data:`launches` counts layer launches, :data:`route_launches` the same
+  launches by design.
 """
 
 from __future__ import annotations
@@ -22,15 +28,18 @@ import torch.nn.functional as F
 
 from ..models import tdnn
 from . import _build
+from .conv_bwd import _design, _lib_fwd, _num_sms, _raise_on
 
 __all__ = ["fused_frame_stack", "fused_frame_stack_reference", "supports",
-           "launches"]
+           "layer_route", "launches", "route_launches"]
 
 SOURCE = "tdnn_stack.cu"
 _ACT = {"relu": 0, "lrelu": 1, "prelu": 2}
 
-# Kernel launches so far (one per layer); chip_smoke.py zeroes and reads it.
+# Kernel launches so far (one per layer), in all and by design;
+# chip_smoke.py zeroes and reads them.
 launches = 0
+route_launches = {"sm90": 0, "sm80": 0}
 
 
 def supports(cfg: tdnn.TdnnConfig) -> bool:
@@ -61,6 +70,23 @@ def _flatten_params(cfg: tdnn.TdnnConfig, params, state):
                      scale.to(torch.float32).contiguous(),
                      shift.to(torch.float32).contiguous(), alpha))
     return flat
+
+
+def layer_route(l: int, cin: int, cout: int) -> str:
+    """The design that runs layer ``l`` (Cin → Cout) on the card: "sm80"
+    (K1 v4) for layer 0, whose input is the f32 features, and for a channel
+    count off 8 (TMA's global strides are multiples of 16 bytes); "sm90"
+    (K1 v5) for every other layer."""
+    return "sm80" if l == 0 or cin % 8 or cout % 8 else "sm90"
+
+
+def _layer_designs(cfg: tdnn.TdnnConfig, design=None):
+    """Each layer's design: :func:`layer_route`'s, or ``design`` on every
+    layer.  "sm80" takes every layer; "sm90" raises, since layer 0 never
+    takes it."""
+    cins = (cfg.feat_dim,) + tuple(cfg.channels[:-1])
+    return [_design(design, layer_route(l, cin, cout))
+            for l, (cin, cout) in enumerate(zip(cins, cfg.channels))]
 
 
 def _check_supported(cfg):
@@ -130,7 +156,7 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _fused_cuda(cfg, params, state, x, mask):
+def _fused_cuda(cfg, params, state, x, mask, designs):
     global launches
     dev = x.device
     if x.dim() != 3 or x.shape[0] == 0 or x.shape[1] == 0:
@@ -141,7 +167,6 @@ def _fused_cuda(cfg, params, state, x, mask):
         mask = torch.ones((bsz, t), dtype=torch.float32, device=dev)
     _require(x, "x", torch.float32, (bsz, t, cfg.feat_dim), dev)
     _require(mask, "mask", torch.float32, (bsz, t), dev)
-    lib = _lib()
     layers = _flatten_params(cfg, params, state)
     cur, cin = x, cfg.feat_dim
     with torch.cuda.device(dev):
@@ -158,27 +183,38 @@ def _fused_cuda(cfg, params, state, x, mask):
             last = l == len(layers) - 1
             out = torch.empty((bsz, t, cout), device=dev,
                               dtype=torch.float32 if last else torch.bfloat16)
-            rc = lib.tdnn_layer_launch(
-                cur.data_ptr(), int(l == 0), mask.data_ptr(), w.data_ptr(),
-                b.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                None if alpha is None else alpha.data_ptr(), out.data_ptr(),
-                int(last), bsz, t, cin, cout, k, d, _ACT[cfg.activation],
-                float(cfg.lrelu_alpha), stream)
-            if rc != 0:
-                raise RuntimeError(f"tdnn_layer_launch failed on layer {l} "
-                                   f"(k={k}, dilation={d}): cudaError {rc}")
+            alpha_ptr = None if alpha is None else alpha.data_ptr()
+            if designs[l] == "sm90":
+                rc = _lib_fwd().tdnn_layer_sm90_launch(
+                    cur.data_ptr(), mask.data_ptr(), w.data_ptr(),
+                    b.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                    alpha_ptr, out.data_ptr(), int(last), _num_sms(dev), bsz,
+                    t, cin, cout, k, d, _ACT[cfg.activation],
+                    float(cfg.lrelu_alpha), stream)
+            else:
+                rc = _lib().tdnn_layer_launch(
+                    cur.data_ptr(), int(l == 0), mask.data_ptr(),
+                    w.data_ptr(), b.data_ptr(), scale.data_ptr(),
+                    shift.data_ptr(), alpha_ptr, out.data_ptr(), int(last),
+                    bsz, t, cin, cout, k, d, _ACT[cfg.activation],
+                    float(cfg.lrelu_alpha), stream)
+            _raise_on(rc, f"K1 {designs[l]} layer {l} (k={k}, dilation={d})")
             launches += 1
+            route_launches[designs[l]] += 1
             cur, cin = out, cout
     return cur
 
 
-def fused_frame_stack(cfg: tdnn.TdnnConfig, params, state, x, mask=None):
+def fused_frame_stack(cfg: tdnn.TdnnConfig, params, state, x, mask=None,
+                      design=None):
     """(B, T, F) → (B, T, channels[-1]) f32 frame-level activations,
     matching K1 (eval mode).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel, or raise."""
+    tensors launch each layer's kernel (:func:`layer_route`, or
+    ``design``), or raise."""
     _check_supported(cfg)
+    designs = _layer_designs(cfg, design)
     if x.device.type == "cpu":
         return fused_frame_stack_reference(cfg, params, state, x, mask)
     if x.device.type != "cuda":
         raise ValueError(f"no fused frame stack for device {x.device}")
-    return _fused_cuda(cfg, params, state, x, mask)
+    return _fused_cuda(cfg, params, state, x, mask, designs)
