@@ -64,11 +64,30 @@ Phases; any failure raises and the exit code is non-zero:
    and K2, K3 and K4 at k=5 and k=7 against their plain versions, their
    bounds and the one PyTorch call that computes the same function; each
    in both designs (v2 "sm90" and v1 "sm80"), with CUDA launches per call
-   and a host-inclusive time per call (100 back-to-back calls).
+   and a host-inclusive time per call (100 back-to-back calls);
+9. the user's lifecycle through the CLIs at full ``no_dropout`` width, in
+   a temporary directory: three archives of 16 full 64x304 minibatches and
+   one ragged, valid and train_subset archives of 2; ``cli.train_dnn``
+   for 2 epochs with final combination (the main path: K2, K3 and K4
+   counted over the run, 6 calls per minibatch step, all "sm90"; falling
+   loss; ``model_final`` -> ``model_combined``; ``model_0`` and the
+   candidates kept by GC; weights summing to 1 and a combined loss no worse
+   than the final model's), a rerun that must train nothing, checkpoint
+   save and restore times, a run stopped by its ``stop_check`` and resumed
+   that must match an uninterrupted one bit for bit, ``cli.eval_dnn``, and
+   ``cli.extract_embedding`` on the serving ark with ``--spk2utt`` (the
+   main extraction path: K1 v4 on layer 0 and v5 on layers 1-4), whose
+   ark must equal an in-process fused extractor's rows;
+10. the ``attention`` and ``am_softmax_tricks`` presets at full width, two
+   minibatch steps each: attention through K2-K4 and its unfused
+   extraction on the card against the CPU's in bf16 (5e-2 normalised) and
+   in f32 (1e-3), with bf16 against f32 printed for both devices; the
+   AM-softmax head with a finite, falling loss.
 
 The line before the last is ``{"kernels": [...]}`` (K1 and K2-K4 in the
 main path's designs, and rows for the "sm80" designs with their main-path
-launch counts); the last line is
+launch counts, each with its launches over the CLI phase as
+``cli_launches``); the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full f32
 (``torch.backends.cuda.matmul.allow_tf32 = False``) so the plain versions
 are true f32 referees.
@@ -77,6 +96,8 @@ are true f32 referees.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -94,6 +115,7 @@ import torch.nn.functional as F
 KERNEL_BOUND = 1e-2        # max |kernel - plain| / max |plain|
 COSINE_BOUND = 0.999       # fused vs unfused x-vectors, both bf16
 F32_BOUND = 1e-3           # card f32 vs CPU f32 x-vectors, normalised
+ATT_BOUND = 5e-2           # attention model: card vs CPU x-vectors in bf16
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -681,18 +703,21 @@ def phase_conv_checks(CB, dev, seed):
     return train_err
 
 
-def write_train_archive(TA, path, seed, feat_dim):
-    """TRAIN_FULL full minibatches and one ragged one (true length
-    TRAIN_RAGGED_LEN, last).  Each speaker has its own mean feature
-    vector, so the labels can be learnt."""
+def write_train_archive(TA, path, seed, feat_dim, full=TRAIN_FULL,
+                        ragged=True, means=None):
+    """``full`` full minibatches and, with ``ragged``, one of true length
+    TRAIN_RAGGED_LEN last.  Each speaker has its own mean feature vector
+    (``means``, else drawn from ``seed``), so the labels can be learnt."""
     rng = np.random.default_rng(seed)
-    means = rng.standard_normal((TRAIN_CLASSES, feat_dim), dtype=np.float32)
+    if means is None:
+        means = rng.standard_normal((TRAIN_CLASSES, feat_dim),
+                                    dtype=np.float32)
     mbs = []
-    for i in range(TRAIN_FULL + 1):
+    for i in range(full + int(ragged)):
         labels = rng.integers(0, TRAIN_CLASSES, TRAIN_B, dtype=np.int32)
         feats = (means[labels][:, None, :] + rng.standard_normal(
             (TRAIN_B, TRAIN_T, feat_dim), dtype=np.float32))
-        true_len = TRAIN_T if i < TRAIN_FULL else TRAIN_RAGGED_LEN
+        true_len = TRAIN_T if i < full else TRAIN_RAGGED_LEN
         feats[:, true_len:] = 0.0
         mbs.append((feats.astype(np.float16), labels, true_len))
     TA.write_archive(path, mbs)
@@ -965,6 +990,354 @@ def phase_train_timing(TR, dev, seed, tag, tmp):
         for k, us, n in sorted(ops, key=lambda o: -o[1])[:14]) + f" [{tag}]")
 
 
+# ---------------------------------------------------------------------------
+# the train -> checkpoint -> extract slice through the CLIs
+# ---------------------------------------------------------------------------
+
+CLI_FULL, CLI_ARCHIVES, CLI_DIAG = 16, 3, 2
+CLI_SPEAKERS = 8            # spk2utt groups of the extraction ark
+
+
+def zero_counts(CB, TK):
+    for counts in (CB.launches, CB.route_launches, TK.route_launches):
+        for name in counts:
+            counts[name] = 0
+    TK.launches = 0
+
+
+def run_cli(module, argv):
+    """``module.main(argv)`` with its standard output captured; returns
+    (the lines it printed, seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        module.main(argv)
+    return buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def read_metrics(work):
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def tree_diff(leaves, a, b, names):
+    """(largest |a - b| over the leaves, the leaf's name)."""
+    worst = (0.0, None)
+    for n, x, y in zip(names, leaves(a), leaves(b)):
+        d = float((x.detach().float() - y.detach().float()).abs().max())
+        worst = max(worst, (d, n), key=lambda w: w[0])
+    return worst
+
+
+def phase_cli(TR, TA, CB, TK, kio, dev, seed, tag, tmp):
+    """The user's lifecycle at full ``no_dropout`` width: train_dnn (6
+    iterations over 3 archives, diagnostics, final combination) → a rerun
+    that must do nothing → a preempted and resumed run that must match an
+    uninterrupted one bit for bit → eval_dnn → extract_embedding (K1) held
+    to an in-process extractor.  Returns the launches of its own main
+    paths: K2-K4 by design over the train_dnn run, K1 layers by design
+    over the extract_embedding run."""
+    from xvector_tpu_torch.cli import eval_dnn, extract_embedding, train_dnn
+    from xvector_tpu_torch.extract import extractor as TE
+    from xvector_tpu_torch.models.convert import tree_leaves
+    from xvector_tpu_torch.train import checkpoints, combine
+    from xvector_tpu_torch.train.preemption import GracefulPreemption
+
+    egs = os.path.join(tmp, "cli_egs")
+    work = os.path.join(tmp, "cli_exp")
+    os.makedirs(egs)
+    t0 = time.perf_counter()
+    means = np.random.default_rng(seed + 40).standard_normal(
+        (TRAIN_CLASSES, 23), dtype=np.float32)
+    for n in range(1, CLI_ARCHIVES + 1):
+        write_train_archive(TA, os.path.join(egs, f"egs.{n}.xta"),
+                            seed + 40 + n, 23, full=CLI_FULL, means=means)
+    for i, name in enumerate(("valid_egs.xta", "train_subset_egs.xta")):
+        write_train_archive(TA, os.path.join(egs, name), seed + 50 + i, 23,
+                            full=CLI_DIAG, ragged=False, means=means)
+    print(f"cli: wrote {CLI_ARCHIVES} archives of {CLI_FULL} full "
+          f"{TRAIN_B}x{TRAIN_T} minibatches and one of true length "
+          f"{TRAIN_RAGGED_LEN}, and valid/train_subset archives of "
+          f"{CLI_DIAG}, in {time.perf_counter() - t0:.2f} s")
+    argv = ["--model=no_dropout", f"--num-targets={TRAIN_CLASSES}",
+            "--num-epochs=2", "--do-final-combination=true",
+            f"--egs-dir={egs}", f"--dir={work}", f"--random-seed={seed}",
+            f"--device={dev}"]
+
+    # 1. the main training path: counts zeroed just before, read just after
+    zero_counts(CB, TK)
+    out, train_s = run_cli(train_dnn, argv)
+    launches, routes = dict(CB.launches), dict(CB.route_launches)
+    print(f"cli: train_dnn {' '.join(argv)}: {train_s:.3f} s; "
+          + " / ".join(out) + f" [{tag}]")
+    recs = read_metrics(work)
+    train = [r for r in recs if r.get("kind") == "train"]
+    num_iters = 2 * CLI_ARCHIVES
+    if [r["iteration"] for r in train] != list(range(num_iters)):
+        fail(f"cli: train records for iterations "
+             f"{[r['iteration'] for r in train]}")
+    for r in train:
+        diag = {d["kind"]: d for d in recs
+                if d.get("iteration") == r["iteration"]
+                and d.get("kind") in ("valid", "train_subset")}
+        print(f"cli iteration {r['iteration'] + 1}: lr {r['lr']:.6g}, loss "
+              f"{r['loss']:.6f}, accuracy {r['accuracy']:.4f}, "
+              f"{r['minibatches']:g} minibatches ({r['dense_blocks']} dense "
+              f"blocks, {r['single_steps']} single steps), "
+              f"{r['seconds']:.3f} s; dispatch {r.get('dispatch', 0):.3f} s, "
+              f"upload wait {r.get('upload_wait', 0):.3f} s, drain "
+              f"{r.get('device_drain', 0):.3f} s; valid loss "
+              f"{diag['valid']['loss']:.6f}, train_subset loss "
+              f"{diag['train_subset']['loss']:.6f} [{tag}]")
+        if not math.isfinite(r["loss"]):
+            fail(f"cli: iteration {r['iteration']} has a non-finite loss")
+    if not train[-1]["loss"] < train[0]["loss"]:
+        fail("cli: the loss of iteration 6 is not below that of iteration 1")
+    [comb] = [r for r in recs if r.get("kind") == "combine"] or [None]
+    if comb is None:
+        fail("cli: no combine record: "
+             + str([r for r in recs if r.get("kind") == "combine_skipped"]))
+    want_cands = combine.combine_iterations(num_iters, CLI_ARCHIVES)
+    print(f"cli: combination over iterations {comb['iterations']} (expected "
+          f"{want_cands}): weights {[round(w, 6) for w in comb['weights']]}, "
+          f"final_model_loss {comb['final_model_loss']:.6f}, combined_loss "
+          f"{comb['combined_loss']:.6f}, fell_back {comb['fell_back']}, "
+          f"{comb['steps']} steps in {comb['seconds']:.3f} s (candidates "
+          f"loaded, fitted, installed and saved) [{tag}]")
+    if comb["iterations"] != want_cands:
+        fail("cli: combination candidates are not combine_iterations'")
+    if abs(sum(comb["weights"]) - 1.0) > 1e-5:
+        fail("cli: the combination weights do not sum to 1")
+    if not comb["combined_loss"] <= comb["final_model_loss"]:
+        fail("cli: the combined model is worse than the final one")
+    final = os.path.join(work, "model_final")
+    if os.readlink(final) != "model_combined":
+        fail(f"cli: model_final points at {os.readlink(final)}")
+    kept = sorted(it for it, p in checkpoints.iteration_dirs(work)
+                  if checkpoints.is_complete(p))
+    ckpt_mb = os.path.getsize(os.path.join(final, "ckpt.pt")) / 1e6
+    print(f"cli: complete checkpoints after GC {kept} + model_combined "
+          f"({ckpt_mb:.1f} MB each)")
+    if not {0, *want_cands} <= set(kept):
+        fail("cli: model_0 or a combination candidate did not survive GC")
+    steps = sum(int(r["minibatches"]) for r in train)
+    wide = 2            # no_dropout's layers 1 and 2: k > 1, k·Cin > 160
+    want = {n: wide * steps for n in ("fwd", "dw", "dx")}
+    want_routes = {f"{n}_{d}": want[n] if d == "sm90" else 0
+                   for n in ("fwd", "dw", "dx") for d in ("sm90", "sm80")}
+    print(f"cli: K2/K3/K4 calls over the train_dnn run {launches}, by design "
+          f"{routes} (expected {want_routes}: {wide} wide layers x {steps} "
+          "minibatch steps; diagnostics and combination run eval forwards)")
+    if launches != want or routes != want_routes:
+        fail("cli: K2/K3/K4 launch counts of the train_dnn run are off")
+
+    # 2. a rerun on the finished dir does nothing
+    stamp = os.stat(os.path.join(final, "ckpt.pt")).st_mtime_ns
+    zero_counts(CB, TK)
+    _, rerun_s = run_cli(train_dnn, argv)
+    again = read_metrics(work)
+    print(f"cli: rerun on the finished dir: {rerun_s:.3f} s, "
+          f"{len(again) - len(recs)} new metrics records, "
+          f"{sum(CB.launches.values())} kernel calls")
+    if (len(again) != len(recs) or sum(CB.launches.values())
+            or os.readlink(final) != "model_combined"
+            or os.stat(os.path.join(final, "ckpt.pt")).st_mtime_ns != stamp):
+        fail("cli: the rerun trained or touched model_final")
+
+    # 3. checkpoint save and restore at full width
+    probe = TR.Trainer(TR.TrainConfig(model="no_dropout",
+                                      num_targets=TRAIN_CLASSES),
+                       os.path.join(tmp, "cli_probe"), device=dev)
+    t0 = time.perf_counter()
+    checkpoints.restore_into(probe, os.path.realpath(final))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checkpoints.save_named(probe, "model_probe")
+    save_s = time.perf_counter() - t0
+    print(f"cli: checkpoint ({ckpt_mb:.1f} MB: params, BN state, Adam "
+          f"state) restore {restore_s:.3f} s, save {save_s:.3f} s (write, "
+          f"fsync, rename) [{tag}]")
+
+    # 4. preemption: stopped by stop_check after the first of two
+    # iterations, resumed, held to an uninterrupted run bit for bit
+    def short_run(name, stop_after=None):
+        pre = GracefulPreemption()
+        cfg = TR.TrainConfig(model="no_dropout", num_targets=TRAIN_CLASSES,
+                             num_epochs=1, random_seed=seed)
+
+        def archive(i):
+            loader = TA.PrefetchLoader(TA.ArchiveReader(
+                os.path.join(egs, f"egs.{i + 1}.xta")))
+
+            def gen():
+                yield from loader
+                if stop_after is not None and i + 1 == stop_after:
+                    pre.trigger()
+            return gen()
+
+        tr = TR.Trainer(cfg, os.path.join(tmp, name), device=dev)
+        done = tr.train(archive, 2, preemption=pre)
+        return tr, done
+
+    ref, _ = short_run("cli_ref")
+    stopped, done = short_run("cli_pre", stop_after=1)
+    if done != 1:
+        fail(f"cli: the preempted run completed {done} iterations, not 1")
+    resumed, done = short_run("cli_pre")
+    torch.cuda.synchronize()
+    names = leaf_names(ref.params)
+    p_diff = tree_diff(tree_leaves, resumed.params, ref.params, names)
+    s_diff = tree_diff(tree_leaves, resumed.state, ref.state,
+                       leaf_names(ref.state))
+    print(f"cli: preempted after iteration 1 and resumed vs uninterrupted "
+          f"(2 iterations, Adam): largest parameter difference {p_diff[0]:g}"
+          f" ({p_diff[1]}), largest BN-state difference {s_diff[0]:g} "
+          f"({s_diff[1]})")
+    if done != 2 or p_diff[0] or s_diff[0]:
+        fail(f"cli: the resumed run is not bit-identical to the "
+             f"uninterrupted one (largest difference in {p_diff[1]} / "
+             f"{s_diff[1]})")
+
+    # 5. eval_dnn on model_final
+    out, eval_s = run_cli(eval_dnn, [
+        f"--model-dir={work}", "--model=no_dropout",
+        f"--num-targets={TRAIN_CLASSES}",
+        f"--egs={os.path.join(egs, 'valid_egs.xta')}",
+        "--compute-dtype=bfloat16", f"--device={dev}"])
+    res = json.loads(out[-1])
+    print(f"cli: eval_dnn on model_final: {out[-1]} ({eval_s:.3f} s)")
+    if not (math.isfinite(res["loss"]) and 0.0 <= res["accuracy"] <= 1.0):
+        fail("cli: eval_dnn gave a non-finite loss")
+
+    # 6. extract_embedding on the 65-utterance ark with --spk2utt: the
+    # main extraction path, counts zeroed just before, read just after
+    feats_ark, _ = write_arks(kio, tmp, seed)
+    utts = dict(kio.read_mat_ark(feats_ark))
+    keys = sorted(utts)
+    spk2utt = os.path.join(tmp, "spk2utt")
+    with open(spk2utt, "w") as f:
+        for s in range(CLI_SPEAKERS):
+            f.write(f"spk{s} " + " ".join(keys[s::CLI_SPEAKERS]) + "\n")
+    out_ark = os.path.join(tmp, "cli_xvector.ark")
+    zero_counts(CB, TK)
+    out, extract_s = run_cli(extract_embedding, [
+        f"--model-dir={work}", "--model=no_dropout",
+        f"--num-targets={TRAIN_CLASSES}", f"--feats-rspecifier=ark:{feats_ark}",
+        f"--output-ark={out_ark}", f"--spk2utt={spk2utt}", f"--device={dev}"])
+    k1_launches, k1_routes = TK.launches, dict(TK.route_launches)
+    xv = dict(kio.read_vec_flt_scp(out_ark.replace(".ark", ".scp")))
+    calls = k1_routes["sm80"]
+    print(f"cli: extract_embedding: {out[-1]}; {len(xv)} x-vectors in "
+          f"{extract_s:.3f} s = {len(xv) / extract_s:.1f} x-vectors/s "
+          f"host-inclusive (checkpoint restore, ark read, extraction, ark "
+          f"and speaker-mean writes) [{tag}]")
+    print(f"cli: K1 layer launches over the extract_embedding run "
+          f"{k1_launches}, by design {k1_routes} (expected v4 on layer 0 and "
+          f"v5 on layers 1-4: {calls} and {4 * calls})")
+    if not calls or k1_routes["sm90"] != 4 * calls \
+            or k1_launches != 5 * calls:
+        fail("cli: extract_embedding did not run K1 v4 on layer 0 and v5 "
+             "on layers 1-4")
+    spk = dict(kio.read_vec_flt_scp(out_ark.replace(".ark", "_spk.scp")))
+    if len(spk) != CLI_SPEAKERS:
+        fail(f"cli: {len(spk)} speaker means, expected {CLI_SPEAKERS}")
+    ex = TE.XvectorExtractor(probe.model_cfg, probe.params, probe.state,
+                             TE.ExtractorConfig(compute_dtype="bfloat16",
+                                                use_fused=True), device=dev)
+    want = ex.extract(utts.items())
+    same = set(want) == set(xv) and all(np.array_equal(xv[k], want[k])
+                                        for k in want)
+    print(f"cli: ark rows identical to an in-process fused extractor from "
+          f"the restored model_final: {same} ({len(want)} rows)")
+    if not same:
+        fail("cli: the extract_embedding ark differs from in-process "
+             "extraction")
+    return routes, k1_routes
+
+
+def phase_presets(TR, CB, TK, TE, dev, seed, tag, tmp):
+    """The attention and AM-softmax presets of ``presets.py`` at full
+    width, two minibatch steps each: attention through K2-K4 and then
+    unfused extraction on the card against the same weights on the CPU;
+    AM-softmax (base + SGD 0.9 + shrink) must give a finite, falling
+    loss."""
+    from xvector_tpu_torch.presets import BENCHMARK_CONFIGS
+    from xvector_tpu_torch.train import schedules
+    rng = np.random.default_rng(seed + 60)
+    means = rng.standard_normal((TRAIN_CLASSES, 23), dtype=np.float32)
+
+    def minibatch():
+        labels = rng.integers(0, TRAIN_CLASSES, TRAIN_B, dtype=np.int32)
+        feats = means[labels][:, None, :] + rng.standard_normal(
+            (TRAIN_B, TRAIN_T, 23), dtype=np.float32)
+        return feats.astype(np.float16), labels, TRAIN_T
+
+    # attention: one dense block of two minibatches
+    cfg = replace(BENCHMARK_CONFIGS["attention"], num_targets=TRAIN_CLASSES,
+                  block_size=2, random_seed=seed)
+    tr = TR.Trainer(cfg, os.path.join(tmp, "preset_attention"), device=dev)
+    zero_counts(CB, TK)
+    t0 = time.perf_counter()
+    st = tr.train_one_iteration(0, [minibatch(), minibatch()],
+                                cfg.initial_effective_lrate, 0.0, 1.0)
+    secs = time.perf_counter() - t0
+    routes = dict(CB.route_launches)
+    print(f"presets attention ({cfg.model}, {TRAIN_CLASSES} classes, bf16 "
+          f"Adam): 2 steps, loss {st['loss']:.6f}, {secs:.3f} s; K2/K3/K4 "
+          f"calls by design {routes} [{tag}]")
+    if not math.isfinite(st["loss"]) or routes != {
+            "fwd_sm90": 4, "dw_sm90": 4, "dx_sm90": 4, "fwd_sm80": 0,
+            "dw_sm80": 0, "dx_sm80": 0}:
+        fail("presets attention: non-finite loss or K2/K3/K4 calls off "
+             "(expected 2 wide layers x 2 steps on sm90)")
+    small = [(f"u{i}", rng.standard_normal((n, 23), dtype=np.float32))
+             for i, n in enumerate((300, 517, 128))]
+    xv = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        for dtype in ("bfloat16", "float32"):
+            ex = TE.XvectorExtractor(tr.model_cfg, tr.params, tr.state,
+                                     TE.ExtractorConfig(compute_dtype=dtype),
+                                     device=d)
+            xv[(where, dtype)] = ex.extract(small)
+
+    def gap(a, b):
+        return max(float(np.abs(xv[a][k] - xv[b][k]).max()
+                         / np.abs(xv[b][k]).max()) for k in xv[b])
+
+    card_f32 = gap(("card", "bfloat16"), ("cpu", "float32"))
+    cpu_f32 = gap(("cpu", "bfloat16"), ("cpu", "float32"))
+    same_bf16 = gap(("card", "bfloat16"), ("cpu", "bfloat16"))
+    same_f32 = gap(("card", "float32"), ("cpu", "float32"))
+    # The uncentred variance E[x²] - mean² of attention pooling (the JAX
+    # package's formula) amplifies the bf16 frame stack's rounding where a
+    # channel's mean² outweighs its variance (up to ~11x here, BN state
+    # after two steps), so bf16 against f32 is measured on both devices
+    # and the card is held to the CPU in the same dtype.
+    print(f"presets attention: unfused extraction, same weights, normalised "
+          f"error: card bf16 vs CPU f32 {card_f32:.3g} (the CPU's own bf16 "
+          f"vs f32 {cpu_f32:.3g}); card vs CPU in bf16 {same_bf16:.3g} "
+          f"(bound {ATT_BOUND}), in f32 {same_f32:.3g} (bound {F32_BOUND})")
+    if same_bf16 > ATT_BOUND or same_f32 > F32_BOUND:
+        fail("presets attention: card extraction disagrees with the CPU")
+
+    # AM-softmax tricks: the same minibatch twice, one step each
+    cfg = replace(BENCHMARK_CONFIGS["am_softmax_tricks"],
+                  num_targets=TRAIN_CLASSES, random_seed=seed)
+    tr = TR.Trainer(cfg, os.path.join(tmp, "preset_am_softmax"), device=dev)
+    mb = minibatch()
+    lr = cfg.initial_effective_lrate
+    shrink = schedules.shrink_value(cfg.proportional_shrink, lr)
+    losses = [tr.train_one_iteration(it, [mb], lr, 0.0, shrink)["loss"]
+              for it in range(2)]
+    print(f"presets am_softmax_tricks ({cfg.model}, head {cfg.head}, "
+          f"{cfg.optimizer} momentum {cfg.momentum}, shrink {shrink:g}): "
+          f"loss {losses[0]:.6f} -> {losses[1]:.6f} [{tag}]")
+    if not all(map(math.isfinite, losses)) or not losses[1] < losses[0]:
+        fail("presets am_softmax_tricks: the loss is not finite and "
+             "falling")
+
+
 def conv_work(b, t, cin, cout, k, which):
     """(FLOP, bytes) one call must do: 2·B·T·Cin·Cout·k; each bf16 input
     read once and each output written once (K3's dW in f32)."""
@@ -1153,6 +1526,13 @@ def main(argv=None) -> int:
         _, routes = phase_training(TR, TA, CB, schedules, dev, args.seed,
                                    tag, tmp)
         phase_train_timing(TR, dev, args.seed, tag, tmp)
+
+    # 9. the train -> checkpoint -> extract lifecycle through the CLIs,
+    # then 10. the attention and AM-softmax presets
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_routes, cli_k1 = phase_cli(TR, TA, CB, TK, kio, dev, args.seed,
+                                       tag, tmp)
+        phase_presets(TR, CB, TK, TE, dev, args.seed, tag, tmp)
     conv = phase_conv_timing(CB, dev, args.seed, tag)
 
     # K1: the main path runs layer 0 on v4 and layers 1-4 on v5; "ms" is the
@@ -1180,6 +1560,8 @@ def main(argv=None) -> int:
             "wrapper_ms": k1[key]["wrapper_ms"],
             "layers_us": k1[key]["layers_us"],
             "shapes": "no_dropout 32x1024 (ms: the layer kernels per call)",
+            # the layer launches of its design over extract_embedding's run
+            "cli_launches": cli_k1["sm90" if key == "rule" else "sm80"],
             **({"launches_by_design": main_routes} if key == "rule" else {}),
         })
     # K2-K4: the main path makes one k=5 and one k=7 call of each per
@@ -1203,6 +1585,8 @@ def main(argv=None) -> int:
             "source": f"xvector_tpu_torch/csrc/{source}",
             "replaces": f"xvector_tpu/ops/conv_bwd.py:{line}",
             "launches": routes[route],
+            # its calls over train_dnn's run (6 iterations, combination)
+            "cli_launches": cli_routes[route],
             "max_abs_err": conv_errs[key],
             **mean,
             "bound_by": per_k[0]["bound_by"],

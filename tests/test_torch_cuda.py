@@ -301,3 +301,123 @@ def test_tiny_train_step_launch_counts(cuda_device, tmp_path):
     assert _routes_delta(routes) == {"fwd_sm90": 1, "dw_sm90": 1,
                                      "dx_sm90": 1}
     assert np.isfinite(float(m["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# the train → checkpoint → extract slice on the card
+# ---------------------------------------------------------------------------
+
+def _learnable(n, seed, b=8, t=48, classes=5):
+    rng = np.random.RandomState(seed)
+    means = np.random.RandomState(0).randn(classes, 23) * 2
+    out = []
+    for _ in range(n):
+        y = rng.randint(0, classes, b).astype(np.int32)
+        x = (rng.randn(b, t, 23) * 0.3 + means[y][:, None, :])
+        out.append((x.astype(np.float16), y, t))
+    return out
+
+
+def _card_trainer(path, **kw):
+    cfg = TR.TrainConfig(model="tiny", num_targets=5, compute_dtype="bfloat16",
+                         block_size=2, num_epochs=1, **kw)
+    return TR.Trainer(cfg, str(path))
+
+
+def _all_tensors(tr):
+    from xvector_tpu_torch.models.convert import tree_leaves
+    out = [t.detach().cpu() for t in tree_leaves(tr.params)]
+    out += [t.cpu() for t in tree_leaves(tr.state)]
+    for st in tr.optimizer.state_dict()["state"].values():
+        out += [torch.as_tensor(v).cpu() for v in st.values()]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_checkpoint_round_trip_on_card_is_bit_exact(cuda_device, tmp_path,
+                                                    moments):
+    """save_iteration → restore_into on the card gives the same params, BN
+    state and Adam state, and one more iteration from each gives the same
+    bits."""
+    from xvector_tpu_torch.train import checkpoints as C
+    mbs = _learnable(3, 1)
+    a = _card_trainer(tmp_path / "a", adam_moments_dtype=moments)
+    a.train_one_iteration(0, iter(mbs), 1e-3, 0.0, 1.0)
+    C.save_iteration(a, 1)
+    b = _card_trainer(tmp_path / "b", adam_moments_dtype=moments)
+    C.restore_into(b, C.iteration_path(a.work_dir, 1))
+    assert all(torch.equal(x, y) for x, y in zip(_all_tensors(a),
+                                                 _all_tensors(b)))
+    for tr in (a, b):
+        tr.train_one_iteration(1, iter(mbs), 1e-3, 0.0, 1.0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(_all_tensors(a),
+                                                 _all_tensors(b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_attention_pooling_bf16_on_card_matches_cpu_f32(cuda_device, masked):
+    g = torch.Generator().manual_seed(3)
+    h = torch.randn(4, 300, 64, generator=g)
+    att = {"w": 0.1 * torch.randn(32, 32, generator=g),
+           "b": 0.1 * torch.randn(32, generator=g),
+           "v": 0.1 * torch.randn(32, generator=g)}
+    mask = torch.ones(4, 300, 1)
+    if masked:
+        mask[1, 200:] = 0.0
+        mask[3, 50:] = 0.0
+    want = tt.attention_pooling(h, att, mask)
+    got = tt.attention_pooling(
+        h.to(cuda_device, torch.bfloat16),
+        {k: v.to(cuda_device) for k, v in att.items()}, mask.to(cuda_device))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _err(got.cpu(), want) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_am_softmax_on_card_matches_cpu(cuda_device):
+    from xvector_tpu_torch.models import heads as TH
+    g = torch.Generator().manual_seed(4)
+    hidden = torch.randn(64, 512, generator=g)
+    w = torch.randn(512, 300, generator=g)
+    labels = torch.randint(0, 300, (64,), generator=g)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        h = hidden.to(dev, copy=True).requires_grad_(True)
+        ww = w.to(dev, copy=True).requires_grad_(True)
+        loss, logits = TH.am_softmax(h, ww, labels.to(dev))
+        (loss + logits.square().mean() * 1e-3).backward()
+        out[str(dev)] = [loss.detach().cpu(), logits.detach().cpu(),
+                         h.grad.cpu(), ww.grad.cpu()]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert _err(a.reshape(-1), b.reshape(-1)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_train_stop_check_resume_is_bit_identical_on_card(cuda_device,
+                                                          tmp_path):
+    """A 3-iteration Trainer.train on the card, stopped by its stop_check
+    after the first iteration and resumed, ends with the bits of an
+    uninterrupted run (K3 v2 sums in a fixed order; nothing on the path
+    uses atomics)."""
+    from xvector_tpu_torch.train.preemption import GracefulPreemption
+    archives = [_learnable(3, s) for s in (1, 2, 3)]
+    ref = _card_trainer(tmp_path / "ref", optimizer="adam")
+    assert ref.train(lambda i: iter(archives[i]), 3) == 3
+    pre = GracefulPreemption()
+
+    def loader(i):
+        def gen():
+            yield from archives[i]
+            pre.trigger()            # at the boundary after iteration 0
+        return gen()
+
+    stopped = _card_trainer(tmp_path / "run", optimizer="adam")
+    assert stopped.train(loader, 3, preemption=pre) == 1
+    resumed = _card_trainer(tmp_path / "run", optimizer="adam")
+    assert resumed.train(lambda i: iter(archives[i]), 3) == 3
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(_all_tensors(resumed),
+                                                 _all_tensors(ref)))

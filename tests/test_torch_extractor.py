@@ -87,6 +87,22 @@ def test_fused_on_cpu_matches_jax_f32(model):
         assert err <= 5e-2, (utt, err)
 
 
+def test_attention_extractor_matches_jax():
+    """An attention-pooling topology takes the unfused path."""
+    cfg = replace(jt.MODEL_ZOO["l2_lrelu_attention"],
+                  channels=(16, 16, 16, 16, 24), embed_dims=(12, 12))
+    jp, js, tp, ts = model_pair(cfg, seed=5)
+    want = JE.XvectorExtractor(cfg, jp, js, JE.ExtractorConfig(**COMMON)
+                               ).extract(_utterances())
+    got = TE.XvectorExtractor(port_cfg(cfg), tp, ts,
+                              TE.ExtractorConfig(**COMMON), device="cpu"
+                              ).extract(_utterances())
+    assert set(got) == set(want)
+    for utt in want:
+        np.testing.assert_allclose(got[utt], want[utt], rtol=1e-4,
+                                   atol=1e-4)
+
+
 def test_fused_rejects_unsupported_topology():
     cfg = replace(tt.MODEL_ZOO["l2_lrelu_attention"],
                   channels=(8, 8, 8, 8, 16), embed_dims=(12, 12))

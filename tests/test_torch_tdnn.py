@@ -110,9 +110,15 @@ def test_init_params_shapes_match_jax(cfg):
 
 
 def test_extract_xvector_rejects_attention_pooling():
-    cfg = replace(tt.MODEL_ZOO["l2_lrelu_attention"],
+    """The attention-pooling topology's frame stack and x-vector against
+    the JAX package, with frame masks, in f32 (it used to be refused)."""
+    cfg = replace(jt.MODEL_ZOO["l2_lrelu_attention"],
                   channels=(8, 8, 8, 8, 16), embed_dims=(12, 12))
-    tp, ts = tt.init_params(torch.Generator().manual_seed(0), cfg, 3,
-                            device="cpu")
-    with pytest.raises(NotImplementedError):
-        tt.extract_xvector(cfg, tp, ts, torch.zeros(1, 30, 23))
+    jp, js, tp, ts = model_pair(cfg)
+    x, mask = inputs(seed=2)
+    want = np.asarray(jt.extract_xvector(cfg, jp, js, jnp.asarray(x),
+                                         jnp.asarray(mask)))
+    got = tt.extract_xvector(port_cfg(cfg), tp, ts, torch.from_numpy(x),
+                             torch.from_numpy(mask)).numpy()
+    assert got.shape == (3, 12) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, **TOL)

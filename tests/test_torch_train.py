@@ -15,6 +15,7 @@ Adam step turns the noise's sign into ±lr), so the Adam block is run at
 lr 1e-3 and compared at atol = 2·lr·steps, with all but 1% of elements
 within 1e-4."""
 
+import os
 from dataclasses import replace
 
 import jax
@@ -204,9 +205,41 @@ def test_optimizers_match_optax(name):
 
 
 def test_adam_moments_dtype_not_ported():
-    with pytest.raises(NotImplementedError):
-        TO.make_optimizer("adam", [torch.zeros(2, requires_grad=True)], 1e-3,
-                          moments_dtype="bfloat16")
+    """adam_moments_dtype="bfloat16" against ``optax.adam(mu_dtype=
+    bfloat16)``: the first moment stored in bf16, the second in f32, the
+    update from the f32 first moment (1e-6, the optimizers' bound)."""
+    rng = np.random.RandomState(1)
+    params = {"a": rng.randn(4, 3).astype(np.float32),
+              "b": [rng.randn(5).astype(np.float32)]}
+    grads = [jax.tree.map(lambda a: rng.randn(*a.shape).astype(np.float32),
+                          params) for _ in range(5)]
+    lrs = [1e-2, 5e-3, 2e-3, 1e-3, 1e-3]
+    opt = optax.inject_hyperparams(
+        lambda learning_rate: optax.adam(learning_rate,
+                                         mu_dtype=jnp.bfloat16))(
+        learning_rate=lrs[0])
+    jp, state = params, opt.init(params)
+    tp = jax.tree.map(lambda a: torch.from_numpy(a.copy()), params)
+    topt = TO.make_optimizer("adam", tree_leaves(tp), lrs[0],
+                             moments_dtype="bfloat16")
+    for g, lr in zip(grads, lrs):
+        state.hyperparams["learning_rate"] = lr
+        upd, state = opt.update(g, state, jp)
+        jp = optax.apply_updates(jp, upd)
+        for p, gl in zip(tree_leaves(tp), jax.tree.leaves(g)):
+            p.grad = torch.from_numpy(gl)
+        TO.set_learning_rate(topt, lr)
+        topt.step()
+    _close(_np(tp), jp, rtol=1e-6, atol=1e-7)
+    mus = [topt.state[p]["mu"] for p in tree_leaves(tp)]
+    assert all(m.dtype == torch.bfloat16 for m in mus)
+    _close([m.float().numpy() for m in mus],
+           [np.asarray(m, np.float32)
+            for m in jax.tree.leaves(state.inner_state[0].mu)],
+           rtol=1e-6, atol=1e-7)
+    with pytest.raises(ValueError, match="adam_moments_dtype"):
+        TO.make_optimizer("adam", tree_leaves(tp), 1e-3,
+                          moments_dtype="float16")
 
 
 def test_schedules_match_jax():
@@ -367,12 +400,29 @@ def test_xta_archives_cross_packages(tmp_path):
 
 @pytest.mark.parametrize("field,value", [("head", "am_softmax"),
                                          ("spmd_step", "shard_map"),
-                                         ("final_combine", True)])
+                                         ("final_combine", True),
+                                         ("head", "sharded_softmax")])
 def test_trainer_refuses_what_is_not_ported(tmp_path, field, value):
-    cfg = replace(TR.TrainConfig(model="tiny", num_targets=3),
+    """The mesh-only options (the shard_map step, the sharded head) raise;
+    the AM-softmax head and final combination train."""
+    cfg = replace(TR.TrainConfig(model="tiny", num_targets=3, num_epochs=1,
+                                 compute_dtype="float32", block_size=2,
+                                 combine_opt_steps=3),
                   **{field: value})
-    with pytest.raises(NotImplementedError):
-        TR.Trainer(cfg, str(tmp_path), device="cpu")
+    if (field, value) in (("spmd_step", "shard_map"),
+                          ("head", "sharded_softmax")):
+        with pytest.raises(NotImplementedError):
+            TR.Trainer(cfg, str(tmp_path), device="cpu")
+        return
+    tr = TR.Trainer(cfg, str(tmp_path), device="cpu")
+    rng = np.random.RandomState(2)
+    mbs = [(rng.randn(4, 24, 23).astype(np.float16),
+            rng.randint(0, 3, 4).astype(np.int32), 24) for _ in range(2)]
+    assert tr.train(lambda i: iter(mbs), 2,
+                    valid_batches=lambda: iter(mbs[:1])) == 2
+    final = os.readlink(os.path.join(str(tmp_path), "model_final"))
+    assert final == ("model_combined" if field == "final_combine"
+                     else "model_2")
 
 
 def test_bf16_fused_path_agrees_with_matmul_path():

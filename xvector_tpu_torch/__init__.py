@@ -1,12 +1,12 @@
 """PyTorch/CUDA port of the x-vector framework, for NVIDIA Hopper (sm_90a).
 
 The JAX package ``xvector_tpu`` is the reference; this package mirrors its
-layout (``models/``, ``ops/``, ``extract/``, ``io/``) so each module's
-counterpart is easy to find.  It imports ``torch`` and ``numpy`` only —
+layout (``models/``, ``ops/``, ``extract/``, ``io/``, ``train/``,
+``data/``, ``cli/``) so each module's counterpart is easy to find.  It imports ``torch`` and ``numpy`` only —
 never ``jax`` and nothing of ``xvector_tpu``.
 
-Entry points take ``device=`` (default ``"cuda"``) and raise when CUDA is
-absent unless the caller asks for ``device="cpu"``.  Hand-written kernels
+Entry points take ``device=`` (the CLIs ``--device``; default ``"cuda"``)
+and raise when CUDA is absent unless the caller asks for ``"cpu"``.  Hand-written kernels
 live in ``csrc/`` and are built from source at first use
 (``ops/_build.py``); on CPU tensors each kernel wrapper runs its plain
 PyTorch version instead.

@@ -74,9 +74,6 @@ class XvectorExtractor:
         if cfg.use_fused and not tdnn_kernel.supports(model_cfg):
             raise ValueError("fused extraction unsupported for "
                              f"topology {model_cfg.name}")
-        if model_cfg.pooling != "stats":
-            raise NotImplementedError(
-                f"pooling={model_cfg.pooling!r} is not ported yet")
 
     def _forward(self, x, mask):
         """(B, T, F) features + (B, T) mask on the device → (B, E) f32."""

@@ -5,12 +5,10 @@ and presets, the same parameter tree (``{"frame": [...], "embed": [...],
 "output": {...}}`` with ``(K, Cin, Cout)`` conv weights) and the same
 numerics: conv1d(SAME) + bias → activation → batch norm (batch moments in
 train mode, population statistics folded to one affine in eval mode) →
-frame mask, masked stats pooling, the embed-0 pre-activation readout, the
-classifier head and the L2 term (:func:`apply`), and the closed-form EMA
-fold of per-step batch moments (:func:`fold_bn_state`).
-
-``attention_pooling`` is not ported yet: :func:`apply` and
-``extract_xvector`` raise on an attention-pooling config.
+frame mask, masked stats or self-attentive pooling, the embed-0
+pre-activation readout, the classifier head and the L2 term
+(:func:`apply`), and the closed-form EMA fold of per-step batch moments
+(:func:`fold_bn_state`).
 """
 
 from __future__ import annotations
@@ -332,6 +330,41 @@ def stats_pooling(h, mask=None, eps: float = VAR2STD_EPSILON):
     return torch.cat([mean, torch.sqrt(var.clamp(min=0.0) + eps)], dim=-1)
 
 
+def attention_pooling(h, att: Params, mask=None, eps: float = VAR2STD_EPSILON):
+    """Self-attentive pooling (models.py:1039-1051): split the channels in
+    two, scores from the first half, attention-weighted mean ‖ std of the
+    second.  ``mask`` is (B, T, 1); masked frames score -1e30.
+
+    The operands are rounded to h's dtype and every product runs in f32
+    (f64 for f64 input), the JAX package's bf16 operands with
+    ``preferred_element_type`` accumulation: a bf16 product is exact in
+    f32, so only the order of the sums differs.  The softmax runs in f32
+    and the variance is E[x²] − mean², not centred."""
+    half = h.shape[-1] // 2
+    acc = _acc_dtype(h.dtype)
+
+    def rounded(t):
+        return t.to(h.dtype).to(acc)
+
+    h1, h2 = h[..., :half].to(acc), h[..., half:].to(acc)
+    pre = h1 @ rounded(att["w"]) + att["b"]
+    scores = rounded(torch.tanh(pre)) @ rounded(att["v"])      # (B, T)
+    if mask is not None:
+        scores = torch.where(mask[..., 0] > 0, scores,
+                             torch.full_like(scores, -1e30))
+    a = rounded(torch.softmax(scores, dim=1))
+    mean = torch.einsum("btc,bt->bc", h2, a)
+    ex2 = torch.einsum("btc,bt->bc", h2.square(), a)
+    var = ex2 - mean.square()
+    return torch.cat([mean, torch.sqrt(var.clamp(min=0.0) + eps)], dim=-1)
+
+
+def _pool(cfg: TdnnConfig, params: Params, h, m):
+    if cfg.pooling == "attention":
+        return attention_pooling(h, params["attention"], m)
+    return stats_pooling(h, m)
+
+
 # ---------------------------------------------------------------------------
 # Forward pass
 # ---------------------------------------------------------------------------
@@ -355,9 +388,6 @@ def apply(cfg: TdnnConfig, params: Params, state: State, x, *, mask=None,
     ``xvector`` (the embed-0 pre-activation), ``hidden``, ``pooled``,
     ``l2_loss`` (already β-scaled) and ``state`` (the new BN state, or the
     raw batch moments with ``bn_stats_out``)."""
-    if cfg.pooling != "stats":
-        raise NotImplementedError(
-            f"pooling={cfg.pooling!r} is not ported yet")
     m = None if mask is None else mask.to(torch.float32)[..., None]
     rw = (None if row_weight is None
           else row_weight.to(torch.float32)[:, None])
@@ -390,7 +420,7 @@ def apply(cfg: TdnnConfig, params: Params, state: State, x, *, mask=None,
         if i != cfg.num_frame_layers - 1:
             h = dropout(h)
 
-    pooled = stats_pooling(h, m)
+    pooled = _pool(cfg, params, h, m)
     acc = _acc_dtype(compute_dtype)
     l2 = torch.zeros((), dtype=acc, device=x.device)
     h = pooled
@@ -447,12 +477,9 @@ def extract_xvector(cfg: TdnnConfig, params: Params, state: State, x,
                     mask=None, compute_dtype=torch.float32):
     """Embedding-only forward (no classifier head) for extraction:
     (B, T, F) features and optional (B, T) mask → (B, embed_dims[0]) f32."""
-    if cfg.pooling != "stats":
-        raise NotImplementedError(
-            f"pooling={cfg.pooling!r} is not ported yet")
     m = None if mask is None else mask.to(torch.float32)[..., None]
     h = frame_stack(cfg, params, state, x, mask, compute_dtype)
-    pooled = stats_pooling(h, m)
+    pooled = _pool(cfg, params, h, m)
     e0 = params["embed"][0]
     return _affine(pooled, e0["w"], e0["b"],
                    compute_dtype).to(torch.float32)

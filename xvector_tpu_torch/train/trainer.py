@@ -1,18 +1,26 @@
-"""Training step, block step and one training iteration.
+"""Training step, block step, the iteration and the outer training loop.
 
 Counterpart of ``xvector_tpu/train/trainer.py`` on one device:
 
-* :func:`make_train_step`: one minibatch: forward in train mode, softmax CE
-  (+ L2), backward, the optimizer update and the BN-state EMA;
+* :func:`make_train_step`: one minibatch: forward in train mode, softmax
+  CE or AM-softmax (+ L2), backward, the optimizer update and the BN-state
+  EMA;
 * :func:`make_block_train_step`: a block of stacked minibatches run as a
   Python loop of updates; every step normalises with its batch moments
   and emits them, and :func:`~..models.tdnn.fold_bn_state` folds them into
   the population statistics after the block.  ``dense=True`` is the
   mask-free twin for blocks the host certifies full;
-* :class:`Trainer.train_one_iteration`: one pass over one archive's
+* :meth:`Trainer.train_one_iteration`: one pass over one archive's
   minibatches: bucketing by padded shape, ``block_size`` stacking, dense
   certification on the host, ragged leftovers through the single step,
-  float16 upload with the cast on the device, and a timer summary.
+  float16 upload with the cast on the device, and a timer summary;
+* :meth:`Trainer.train`: the reference's iteration semantics: one archive
+  per iteration, the learning-rate, dropout and shrink schedules,
+  per-iteration checkpoints (``model_0`` before any update) with ``done``
+  sentinels, GC, resume-by-skip, retries that roll back to the last
+  complete checkpoint, held-out diagnostics on a worker thread, a
+  ``metrics.jsonl`` record per event, cooperative preemption, and the
+  final model combination.
 
 Parameters are a tree of leaf tensors that the optimizer updates in place;
 a step returns the new BN state and its metrics as device tensors, so a
@@ -21,17 +29,21 @@ defaults to True: the wide conv layers run the hand-written kernels of
 ``ops/conv_bwd`` (one GPU needs no partitioning rule, which is why the
 JAX package left its Pallas kernels opt-in).
 
-Not ported yet: ``Trainer.train`` with checkpoints, retries, background
-diagnostics and ``metrics.jsonl``; the AM-softmax and sharded heads; the
-shard_map step; final model combination.
+Not ported yet: the sharded-softmax head and the shard_map step (they
+need a mesh of several devices).
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import json
 import os
+import sys
+import threading
+import time
 from dataclasses import dataclass, replace
-from typing import Dict, Iterable, List, Tuple
+from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -39,9 +51,10 @@ import torch
 from .. import resolve_device
 from ..models import tdnn
 from ..models.convert import tree_leaves, tree_map
-from ..models.heads import accuracy, softmax_ce
-from ..utils.profiling import StepTimer
-from . import schedules
+from ..models.heads import accuracy, am_softmax, softmax_ce
+from ..utils.profiling import StepTimer, device_forensics
+from . import checkpoints, combine, schedules
+from .preemption import PreemptedError
 from .optim import make_optimizer, set_learning_rate
 
 __all__ = ["TrainConfig", "Trainer", "make_train_step",
@@ -59,7 +72,7 @@ class TrainConfig:
     proportional_shrink: float = 0.0       # 10 in recipe but dead in TF
     apply_shrink: bool = False             # off for strict parity
     random_seed: int = 2468                # run_xvector.sh:85
-    head: str = "softmax"                  # softmax (am_softmax not ported)
+    head: str = "softmax"                  # softmax | am_softmax
     am_scale: float = 30.0
     am_margin: float = 0.2
     preserve_model_interval: int = 10      # run_xvector.sh:106
@@ -68,12 +81,15 @@ class TrainConfig:
     block_size: int = 16                   # minibatches per block
     optimizer: str = "adam"                # adam | tf_adam | sgd (optim.py)
     momentum: float = 0.5                  # sgd only (run_xvector.sh:96)
-    adam_moments_dtype: str = "float32"    # bfloat16 is not ported
-    max_iteration_retries: int = 0
+    adam_moments_dtype: str = "float32"    # bfloat16 keeps Adam's first
+    # moment in bf16 (optax mu_dtype); f32 for strict reference parity
+    max_iteration_retries: int = 0         # a retry restores the last
+    # complete checkpoint and reruns the iteration (train_dnn.py:364-397)
     retry_backoff_s: float = 30.0
     fused_conv_bwd: bool = True            # ops/conv_bwd kernels (K2-K4)
     spmd_step: str = "gspmd"               # shard_map is not ported
-    final_combine: bool = False            # not ported
+    final_combine: bool = False            # fit convex combination weights
+    # over the last iterations' checkpoints (train/combine.py)
     max_models_combine: int = 20           # ze_utils.py:76 default
     combine_opt_steps: int = 80
     dense_fastpath: bool = True            # mask-free twin for full blocks
@@ -100,14 +116,20 @@ def _loss_fn(model_cfg: tdnn.TdnnConfig, cfg: TrainConfig, params, state,
         mask, weight = None, None
     else:
         mask, weight = _device_mask(batch.shape, t_len, n_rows, batch.device)
+    am = cfg.head == "am_softmax"
     out = tdnn.apply(model_cfg, params, state, batch, mask=mask,
                      row_weight=weight, train=True,
                      dropout_keep=dropout_keep, generator=generator,
                      compute_dtype=_compute_dtype(cfg),
-                     bn_stats_out=bn_stats_out,
+                     bn_stats_out=bn_stats_out, skip_head=am,
                      fused_conv_bwd=cfg.fused_conv_bwd)
-    logits = out["logits"]
-    ce = softmax_ce(logits, labels, weight)
+    if am:
+        ce, logits = am_softmax(out["hidden"], params["output"]["w"], labels,
+                                cfg.am_scale, cfg.am_margin,
+                                row_weight=weight)
+    else:
+        logits = out["logits"]
+        ce = softmax_ce(logits, labels, weight)
     acc = accuracy(logits, labels, weight)
     return ce + out["l2_loss"], (out["state"], ce, acc)
 
@@ -216,14 +238,15 @@ class Trainer:
                  device="cuda"):
         if cfg.num_targets <= 0:
             raise ValueError("num_targets must be set")
-        if cfg.head != "softmax":
-            raise NotImplementedError(f"head={cfg.head!r} is not ported yet")
+        if cfg.head == "sharded_softmax":
+            raise NotImplementedError("head='sharded_softmax' is not ported: "
+                                      "it needs a mesh of several devices")
+        if cfg.head not in ("softmax", "am_softmax"):
+            raise ValueError(f"unknown head {cfg.head!r}")
         if cfg.spmd_step == "shard_map":
             raise NotImplementedError("spmd_step='shard_map' is not ported")
         if cfg.spmd_step != "gspmd":
             raise ValueError(f"unknown spmd_step {cfg.spmd_step!r}")
-        if cfg.final_combine:
-            raise NotImplementedError("final_combine is not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model_cfg = tdnn.MODEL_ZOO[cfg.model]
@@ -237,6 +260,8 @@ class Trainer:
                                                       dense=True)
                                 if cfg.dense_fastpath else None)
         self._eval_fn = make_eval_step(self.model_cfg, cfg)
+        self._metrics_path = os.path.join(work_dir, "metrics.jsonl")
+        self._log_lock = threading.Lock()   # train + diagnostics threads
         self._dropout_points = schedules.parse_dropout_schedule(
             cfg.dropout_schedule)
         params, state = tdnn.init_params(
@@ -266,7 +291,8 @@ class Trainer:
 
     def train_one_iteration(self, it: int, batches: Iterable, lr: float,
                             dropout: float, shrink: float,
-                            attempt: int = 0) -> Dict[str, float]:
+                            attempt: int = 0,
+                            stop_check=None) -> Dict[str, float]:
         """One pass over one archive's minibatches.
 
         ``batches`` yields (feats float16 (B, Tpad, F), labels (B,),
@@ -276,12 +302,22 @@ class Trainer:
         shape take the single step.  A worker thread stacks the next block
         into pinned memory while the current one runs; its float16 bytes
         go to the card and are cast there.  The dropout draws come from a
-        generator seeded with ``random_seed + 1000·it`` (and ``attempt``).
-        Returns mean loss and accuracy, the count of minibatches, of dense
+        generator seeded with ``random_seed + 1000·it`` (a retry's ``attempt``
+        hashed in).
+        ``stop_check`` (e.g. a :class:`~.preemption.GracefulPreemption`) is
+        polled before each minibatch; when it fires the iteration is
+        abandoned with :class:`~.preemption.PreemptedError` — its partial
+        updates live only in process memory, so a resume replays it from
+        the checkpoint.  Returns mean loss and accuracy, the count of minibatches, of dense
         and masked blocks and of single steps, and the timer summary."""
         cfg = self.cfg
-        gen = torch.Generator(device=self.device).manual_seed(
-            cfg.random_seed + 1000 * it + (attempt << 32))
+        seed = cfg.random_seed + 1000 * it
+        if attempt:
+            # a retry draws other dropout masks; the CPU generator keeps
+            # only a seed's low 32 bits, so the attempt is hashed in
+            seed = int(np.random.SeedSequence([seed, attempt])
+                       .generate_state(1)[0])
+        gen = torch.Generator(device=self.device).manual_seed(seed)
         keep = 1.0 - dropout
         pending: List[Tuple[Dict[str, torch.Tensor], int]] = []
         counts = {"dense_blocks": 0, "masked_blocks": 0, "single_steps": 0}
@@ -314,6 +350,8 @@ class Trainer:
 
         try:
             for feats, labels, true_len in batches:
+                if stop_check is not None and stop_check():
+                    raise PreemptedError(f"iteration {it}")
                 key = feats.shape
                 buckets.setdefault(key, []).append(
                     (feats, labels, true_len, feats.shape[0]))
@@ -364,3 +402,232 @@ class Trainer:
             tot_w += n_rows
         return {"loss": tot_loss / max(tot_w, 1),
                 "accuracy": tot_acc / max(tot_w, 1)}
+
+    # -- metrics -----------------------------------------------------------
+    def _log(self, record: Dict[str, Any]):
+        """Append one record to ``metrics.jsonl`` with a ``time`` field;
+        the training and diagnostics threads both write."""
+        record["time"] = time.time()
+        with self._log_lock, open(self._metrics_path, "a") as f:
+            f.write(json.dumps(record, default=str) + "\n")
+
+    # -- the outer loop ------------------------------------------------------
+    def train(self, archive_batches: Callable[[int], Iterable],
+              num_archives: int,
+              valid_batches: Optional[Callable[[], Iterable]] = None,
+              train_subset_batches: Optional[Callable[[], Iterable]] = None,
+              start_iter: int = 0, preemption=None) -> int:
+        """Full run.  ``archive_batches(i)`` yields the minibatches of
+        archive ``i % num_archives``.  Returns the final iteration index
+        (the number of COMPLETED iterations when preempted early).
+
+        num_iters follows train_dnn.py:504 with num_jobs ≡ 1:
+        ``num_epochs * num_archives``.  ``preemption`` (a
+        :class:`~.preemption.GracefulPreemption` or any 0-arg callable)
+        makes the run stop cleanly at the next safe point: the last
+        complete checkpoint stays durable, no ``model_final`` is marked,
+        and a rerun resumes bit-identically.
+
+        Held-out diagnostics run off the training path on one worker
+        thread (the reference backgrounds them, train_dnn.py:429-460): the
+        params and BN state are cloned on this thread before the next
+        iteration's in-place updates are queued, and the worker evaluates
+        the clones on the same CUDA stream.  A diagnostics failure
+        surfaces at the next iteration boundary; while a training
+        exception propagates, it is logged as ``diag_error`` instead of
+        masking it."""
+        cfg = self.cfg
+        num_iters = cfg.num_epochs * num_archives
+        has_diag = (valid_batches is not None
+                    or train_subset_batches is not None)
+        diag_ex = None
+        if has_diag:
+            # the worker makes the trainer's card current before its first
+            # CUDA call, which binds the device's primary context (the sm90
+            # kernels' cuTensorMapEncodeTiled needs one)
+            bind = {}
+            if self.device.type == "cuda":
+                index = self.device.index
+                bind = dict(initializer=torch.cuda.set_device, initargs=(
+                    torch.cuda.current_device() if index is None else index,))
+            diag_ex = cf.ThreadPoolExecutor(max_workers=1, **bind)
+        diag_futures: List[cf.Future] = []
+
+        def run_diag(it: int, params, state):
+            for kind, fn in (("valid", valid_batches),
+                             ("train_subset", train_subset_batches)):
+                if fn is not None:
+                    v = self.evaluate(fn(), params=params, state=state)
+                    self._log({"iteration": it, "kind": kind, **v})
+
+        def check_diag(wait: bool = False):
+            for f in list(diag_futures):
+                if wait or f.done():
+                    # remove BEFORE result(): if it raises, the finally
+                    # block below must not log it a second time
+                    diag_futures.remove(f)
+                    f.result()
+
+        def submit_diag(it: int):
+            if diag_ex is None:
+                return
+            check_diag()
+            p = tree_map(lambda t: t.detach().clone(), self.params)
+            s = tree_map(torch.Tensor.clone, self.state)
+            diag_futures.append(diag_ex.submit(run_diag, it, p, s))
+
+        combine_set: List[int] = []
+        if cfg.final_combine:
+            combine_set = combine.combine_iterations(
+                num_iters, num_archives, cfg.max_models_combine)
+
+        checkpoints.pin_seed(self.work_dir, cfg.random_seed)
+        start_iter = checkpoints.restore_latest(self, start_iter)
+        if checkpoints.latest_complete(self.work_dir) is None:
+            # model_0: the initial parameters, saved BEFORE any update
+            # (train_dnn.py:494), so that a failure inside the first
+            # attempted iteration can roll back
+            checkpoints.save_iteration(self, 0)
+
+        stop_check = preemption if callable(preemption) else None
+        try:
+            final_it = self._train_loop(start_iter, num_iters, num_archives,
+                                        archive_batches, submit_diag,
+                                        stop_check, combine_set)
+        finally:
+            if diag_ex is not None:
+                diag_ex.shutdown(wait=True)
+            if sys.exc_info()[0] is None:
+                check_diag(wait=True)
+            else:
+                for f in diag_futures:
+                    exc = f.exception()
+                    if exc is not None:
+                        self._log({"kind": "diag_error", "error": repr(exc)})
+        if final_it < num_iters:          # preempted
+            return final_it
+        if start_iter >= num_iters and checkpoints.is_complete(
+                os.path.join(self.work_dir, "model_final")):
+            # a finished run: resume-by-skip leaves its model_final as it is
+            return num_iters
+        if combine_set:
+            self._final_combine(combine_set,
+                                train_subset_batches or valid_batches)
+        else:
+            checkpoints.mark_final(self.work_dir, num_iters)
+        return num_iters
+
+    def _train_loop(self, start_iter: int, num_iters: int,
+                    num_archives: int, archive_batches, submit_diag,
+                    stop_check, combine_set) -> int:
+        """The per-iteration scheduler loop; returns the number of
+        completed iterations (== num_iters unless preempted)."""
+        cfg = self.cfg
+        for it in range(start_iter, num_iters):
+            if stop_check is not None and stop_check():
+                self._log({"iteration": it, "kind": "preempted",
+                           "where": "iteration_boundary"})
+                return it
+            lr = schedules.learning_rate(
+                it, num_iters, cfg.initial_effective_lrate,
+                cfg.final_effective_lrate,
+                is_final_iter=(it + 1 >= num_iters))
+            drop = schedules.dropout_proportion(self._dropout_points,
+                                                (it + 1) / num_iters)
+            shrink = (schedules.shrink_value(cfg.proportional_shrink, lr)
+                      if cfg.apply_shrink and cfg.proportional_shrink > 0
+                      else 1.0)
+            t0 = time.monotonic()
+            for attempt in range(cfg.max_iteration_retries + 1):
+                try:
+                    stats = self.train_one_iteration(
+                        it, archive_batches(it % num_archives), lr, drop,
+                        shrink, attempt=attempt, stop_check=stop_check)
+                    break
+                except PreemptedError:
+                    self._log({"iteration": it, "kind": "preempted",
+                               "where": "mid_iteration"})
+                    return it
+                except Exception:
+                    # a device post-mortem beside the retry record (the
+                    # reference dumps nvidia-smi/qstat on job failure,
+                    # ze_utils.py:570-623)
+                    if attempt >= cfg.max_iteration_retries:
+                        self._log({"iteration": it, "kind": "forensics",
+                                   **device_forensics()})
+                        raise
+                    self._log({"iteration": it, "kind": "retry",
+                               "attempt": attempt,
+                               "forensics": device_forensics()})
+                    time.sleep(cfg.retry_backoff_s)
+                    # roll back to the last complete checkpoint so that
+                    # the rerun starts from a consistent state
+                    checkpoints.restore_latest(self, 0)
+            stats.update(iteration=it, lr=lr, dropout=drop,
+                         seconds=time.monotonic() - t0, kind="train")
+            self._log(stats)
+            submit_diag(it)
+            checkpoints.save_iteration(self, it + 1)
+            checkpoints.collect_garbage(
+                self.work_dir, it + 1, cfg.preserve_model_interval,
+                keep=combine_set)
+        return num_iters
+
+    @staticmethod
+    def _uniform_shape_batches(raw: Iterable[Tuple]) -> List[Tuple]:
+        """Pad (feats, labels, true_len, n_rows) minibatches to ONE (B, T)
+        shape; the masks built from true_len and n_rows make the padding
+        exact."""
+        batches = list(raw)
+        if batches:
+            b_max = max(f.shape[0] for f, *_ in batches)
+            t_max = max(f.shape[1] for f, *_ in batches)
+            batches = [
+                (np.pad(f, ((0, b_max - f.shape[0]),
+                            (0, t_max - f.shape[1]), (0, 0))),
+                 np.pad(l, (0, b_max - l.shape[0])), t, r)
+                for f, l, t, r in batches]
+        return batches
+
+    def _final_combine(self, combine_set: Sequence[int], batches_fn):
+        """Fit combination weights over the candidate iterations'
+        checkpoints on the diagnostics minibatches and install the result
+        as ``model_combined`` → ``model_final``.  Each way the fit can be
+        skipped is logged under its own reason, and ``model_final`` then
+        points at the newest complete iteration."""
+        available = {it: path
+                     for it, path in checkpoints.iteration_dirs(self.work_dir)
+                     if checkpoints.is_complete(path)}
+        cands = [it for it in combine_set if it in available]
+
+        def skip(reason: str):
+            self._log({"kind": "combine_skipped", "reason": reason})
+            checkpoints.mark_final(self.work_dir,
+                                   max(available) if available else 0)
+
+        if not cands:
+            return skip("no complete candidate checkpoints")
+        if batches_fn is None:
+            return skip("no diagnostics batches provided")
+        batches = self._uniform_shape_batches(
+            (f, l, t, f.shape[0]) for f, l, t in batches_fn())
+        if not batches:
+            return skip("diagnostics batches yielded no data")
+        t0 = time.monotonic()
+        loaded = [checkpoints.load_pytrees(self, available[it])
+                  for it in cands]
+        params, state, info = combine.optimize_combination(
+            self.model_cfg, [p for p, _ in loaded], [s for _, s in loaded],
+            batches, compute_dtype=_compute_dtype(self.cfg),
+            steps=self.cfg.combine_opt_steps)
+        if not np.all(np.isfinite(info["weights"])):
+            return skip("non-finite combination weights")
+        # the combined model keeps the last iteration's optimizer state, as
+        # the JAX package's model_combined does
+        opt_state = self.optimizer.state_dict()
+        self.set_params(params, state)
+        self.optimizer.load_state_dict(opt_state)
+        checkpoints.save_named(self, "model_combined")
+        checkpoints.mark_final(self.work_dir, "model_combined")
+        self._log({"kind": "combine", "iterations": cands, **info,
+                   "seconds": time.monotonic() - t0})
