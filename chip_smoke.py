@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's extraction and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's extraction, training and wave paths on one GPU.
 
 Run from the repository root (one card, no arguments needed):
 
@@ -82,12 +82,33 @@ Phases; any failure raises and the exit code is non-zero:
    minibatch steps each: attention through K2-K4 and its unfused
    extraction on the card against the CPU's in bf16 (5e-2 normalised) and
    in f32 (1e-3), with bf16 against f32 printed for both devices; the
-   AM-softmax head with a finite, falling loss.
+   AM-softmax head with a finite, falling loss;
+11. the wave front end at full ``no_dropout`` width: a wav.scp of 64
+   synthetic 8 kHz utterances from ``--seed`` (speech-like bursts with
+   silent gaps, 1-60 s and one of 120 s that takes the long path; RIFF,
+   stereo ``#ch1``, SPHERE PCM in both byte orders, µ-law, A-law, embedded
+   shorten, a 16 kHz file resampled, a ``cat … |`` pipe; an all-silence
+   and a 0.2 s utterance that must be skipped) through ``read_wav_scp`` →
+   ``WaveExtractor`` (bf16, K1: v4 on layer 0, v5 on layers 1-4) →
+   ``ArkWriter`` (the main path, launch counts zeroed just before and read
+   just after), then: the golden fixtures through ``mfcc`` on the card
+   (rtol 2e-4, atol 1e-3); the batched front end on the card against the
+   CPU on 16 rows (features and CMVN rtol 1e-4, atol 2e-3; VAD decisions
+   equal but within 1e-3 of a row's threshold, at most 0.1% of frames);
+   fused against unfused (cosine ≥ 0.999); f32 on the card against the
+   CPU (1e-3); the long utterance against its host chain (1e-4);
+   ``cli.extract_embedding --wav-rspecifier`` rows equal to the main
+   path's; augmentation card against CPU (1e-4, SNR within 0.05 dB); card
+   features through the compressed writer within CM's step; timing lines:
+   throughput over the workload, one 16 x 8 s batch by CUDA events and by
+   the profiler (stages, K1 per layer, idle share), host decode time by
+   format.
 
 The line before the last is ``{"kernels": [...]}`` (K1 and K2-K4 in the
 main path's designs, and rows for the "sm80" designs with their main-path
 launch counts, each with its launches over the CLI phase as
-``cli_launches``); the last line is
+``cli_launches``, and K1's over the wave phase as ``wave_launches``); the
+last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full f32
 (``torch.backends.cuda.matmul.allow_tf32 = False``) so the plain versions
 are true f32 referees.
@@ -102,6 +123,7 @@ import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -136,6 +158,7 @@ TRAIN_CLASSES = 7185
 KERNEL_NAMES = ("shift_gemm_kernel", "dw_gemm_kernel", "dw_reduce_kernel",
                 "dw_sm90_kernel", "dx_sm90_kernel", "fwd_sm90_kernel")
 K1_KERNEL_NAMES = ("tdnn_layer_kernel", "fwd_sm90_kernel")
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def fail(msg: str):
@@ -1472,6 +1495,575 @@ def phase_conv_timing(CB, dev, seed, tag):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the wave front end: wav.scp -> WaveExtractor (K1) -> ark
+# ---------------------------------------------------------------------------
+
+WAVE_SR = 8000
+WAVE_UTTS = 64              # wav.scp entries, the two skipped ones included
+WAVE_MAX_S = 60.0           # regular lengths spread over 1-60 s
+WAVE_LONG_S = 120.0         # 12,000 frames: the long path
+WAVE_BATCH = 16             # WaveExtractorConfig's default batch
+WAVE_RUNS = 4               # timed runs of each extractor
+WAVE_SPEAKERS = 8           # spk2utt groups of the CLI run
+FRONT_RTOL, FRONT_ATOL = 1e-4, 2e-3    # features and CMVN, card vs CPU
+GOLDEN_RTOL, GOLDEN_ATOL = 2e-4, 1e-3  # tests/test_features.py:208
+VAD_NEAR = 1e-3             # |log energy - threshold| where a flip may fall
+VAD_FLIP_SHARE = 1e-3       # at most 0.1% of frames may flip
+LONG_BOUND = 1e-4           # long path vs its explicit host chain
+AUG_BOUND = 1e-4            # augmentation, card vs CPU, normalised
+SNR_BOUND_DB = 0.05
+
+
+def speechlike(rng, n):
+    """int16 bursts of low-passed noise (0.3-1.2 s, peak level 1500-8000)
+    between gaps of faint noise (0.15-0.7 s, sigma 2): VAD keeps the
+    bursts and the frames next to them."""
+    from scipy.signal import lfilter
+    env = np.empty(n, np.float64)
+    pos, loud = 0, bool(rng.rand() < 0.5)
+    while pos < n:
+        seg = int(WAVE_SR * (rng.uniform(0.3, 1.2) if loud
+                             else rng.uniform(0.15, 0.7)))
+        env[pos: pos + seg] = rng.uniform(1500, 8000) if loud else 2.0
+        pos, loud = pos + seg, not loud
+    x = lfilter([1.0], [1.0, -rng.uniform(0.3, 0.9)], rng.randn(n))
+    return np.clip(np.rint(x / x.std() * env), -32768, 32767).astype(
+        np.int16)
+
+
+def riff(samples, rate=WAVE_SR):
+    """RIFF/WAVE 16-bit PCM bytes of (n,) or (n, channels) int16."""
+    s = np.asarray(samples, "<i2")
+    n_ch = 1 if s.ndim == 1 else s.shape[1]
+    data = s.tobytes()
+    return (b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE" + b"fmt "
+            + struct.pack("<IHHIIHH", 16, 1, n_ch, rate, rate * 2 * n_ch,
+                          2 * n_ch, 16)
+            + b"data" + struct.pack("<I", len(data)) + data)
+
+
+def sphere(raw: bytes, coding: str, n_bytes: int, byte_fmt="01", n=None):
+    head = ("NIST_1A\n   1024\n"
+            + (f"sample_count -i {n}\n" if n is not None else "")
+            + f"channel_count -i 1\nsample_rate -i {WAVE_SR}\n"
+            f"sample_n_bytes -i {n_bytes}\n"
+            f"sample_byte_format -s{len(byte_fmt)} {byte_fmt}\n"
+            f"sample_coding -s{len(coding)} {coding}\nend_head\n")
+    return head.encode().ljust(1024, b" ") + raw
+
+
+def law_encode(x, decode):
+    """int16 samples → the G.711 codes whose decoded values lie nearest."""
+    table = decode(np.arange(256, dtype=np.uint8))
+    order = np.argsort(table, kind="stable")
+    st = table[order]
+    i = np.clip(np.searchsorted(st, x), 1, 255)
+    nearer = np.abs(st[i - 1] - x) <= np.abs(st[i] - x)
+    return order[np.where(nearer, i - 1, i)].astype(np.uint8)
+
+
+def write_wave_workload(TW, tmp, seed):
+    """A wav.scp of WAVE_UTTS utterances at 8 kHz from ``seed``: one of
+    WAVE_LONG_S, all-silence and 0.2 s ones (skipped), a stereo WAV's
+    channel 1, SPHERE PCM in both byte orders, µ-law and A-law, a 2 s
+    embedded-shorten SPHERE (tests/shorten_ref.py encodes), a 16 kHz WAV
+    (resampled on reading), a ``cat … |`` pipe, and RIFF 16-bit for the
+    rest, lengths spread over 1-WAVE_MAX_S s.  Returns the wav.scp path,
+    {utt: format}, {utt: file}, {utt: samples at 8 kHz} and the
+    utterances that must be skipped."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "shorten_ref", os.path.join(REPO, "tests", "shorten_ref.py"))
+    enc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(enc)
+    rng = np.random.RandomState(seed + 70)
+    kinds = ["long", "silence", "short", "stereo", "sph_pcm01", "sph_pcm10",
+             "sph_ulaw", "sph_alaw", "shorten", "wav16k", "pipe"]
+    kinds += ["wav"] * (WAVE_UTTS - len(kinds))
+    wdir = os.path.join(tmp, "wav")
+    os.makedirs(wdir)
+    lines, fmt, files, lens = [], {}, {}, {}
+    for i, kind in enumerate(kinds):
+        utt = f"w{i:02d}_{kind}"
+        secs = {"long": WAVE_LONG_S, "silence": 4.0, "short": 0.2,
+                "shorten": 2.0}.get(kind, rng.uniform(1.0, WAVE_MAX_S))
+        n = int(secs * WAVE_SR)
+        path = os.path.join(wdir, utt + (".sph" if kind.startswith("sph")
+                                         or kind == "shorten" else ".wav"))
+        spec_ = path
+        if kind == "silence":
+            data = riff(np.zeros(n, np.int16))
+        elif kind == "stereo":
+            data = riff(np.stack([speechlike(rng, n), speechlike(rng, n)], 1))
+            spec_ = path + "#ch1"
+        elif kind.startswith("sph_pcm"):
+            bo = kind[-2:]
+            raw = speechlike(rng, n).astype("<i2" if bo == "01" else ">i2")
+            data = sphere(raw.tobytes(), "pcm", 2, bo)
+        elif kind in ("sph_ulaw", "sph_alaw"):
+            law = kind[-4:]
+            dec = TW._mulaw_decode if law == "ulaw" else TW._alaw_decode
+            data = sphere(law_encode(speechlike(rng, n), dec).tobytes(), law,
+                          1)
+        elif kind == "shorten":
+            data = enc.sphere_with_shorten(speechlike(rng, n).astype(
+                np.int64), sample_rate=WAVE_SR)
+        elif kind == "wav16k":
+            data = riff(speechlike(rng, 2 * n), rate=2 * WAVE_SR)
+        else:
+            data = riff(speechlike(rng, n))
+            if kind == "pipe":
+                spec_ = f"cat {path} |"
+        with open(path, "wb") as f:
+            f.write(data)
+        lines.append(f"{utt} {spec_}\n")
+        fmt[utt], files[utt], lens[utt] = kind, path, n
+    scp = os.path.join(tmp, "wav.scp")
+    with open(scp, "w") as f:
+        f.writelines(lines)
+    skipped = {u for u, k in fmt.items() if k in ("silence", "short")}
+    return scp, fmt, files, lens, skipped
+
+
+def cosine(a, b):
+    return float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def cm_bound(m):
+    """Per-column error bound of Kaldi's CompressedMatrix: CM2 (≤ 8 rows)
+    half a uint16 step of the global range (plus the float32 rounding of
+    the stored minimum and range); CM one code of the widest
+    percentile segment (a column's range over 63 codes at worst) plus the
+    uint16 rounding of the percentiles."""
+    grange = max(float(m.max() - m.min()), 1e-5)
+    if m.shape[0] <= 8:
+        return np.full(m.shape[1], grange / 65535 / 2
+                       + 4e-7 * float(np.abs(m).max()))
+    return (m.max(0) - m.min(0)) / 63 + 2 * grange / 65535 + 1e-6
+
+
+def phase_wave(tt, TE, CB, TK, kio, dev, seed, tag, tmp):
+    """The wave front end at full ``no_dropout`` width: read_wav_scp →
+    WaveExtractor (bf16, K1) → ArkWriter as the main path, then its eight
+    checks.  Returns (the main path's K1 layer launches by design, the
+    decoded workload, the model)."""
+    import scipy.signal  # noqa: F401  (resample takes the band-limited branch)
+    from xvector_tpu_torch.cli import extract_embedding
+    from xvector_tpu_torch.io import wav as TW
+    from xvector_tpu_torch.models.convert import tree_map
+    from xvector_tpu_torch.ops import augment as TA
+    from xvector_tpu_torch.ops import features as TF
+    from xvector_tpu_torch.train import checkpoints
+    from xvector_tpu_torch.train import trainer as TR
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    scp, fmt, files, lens, skipped = write_wave_workload(TW, tmp, seed)
+    print(f"wave: wrote {len(fmt)} utterances ({sorted(set(fmt.values()))}) "
+          f"in {time.perf_counter() - t0:.2f} s")
+    cfg, params, state = model(tt, "no_dropout", seed, 7185, dev)
+    wcfg = TE.WaveExtractorConfig(batch_size=WAVE_BATCH, use_fused=True)
+
+    # 1. the golden fixtures through mfcc on the card
+    g = np.load(os.path.join(REPO, "tests", "golden", "feature_golden.npz"))
+    clean = TF.MfccConfig(dither=0.0)
+    for case in range(int(g["n_cases"])):
+        got = TF.mfcc(torch.from_numpy(g[f"wave_{case}"].astype(
+            np.float32)).to(dev), clean).cpu().numpy()
+        want = g[f"mfcc_{case}"]
+        excess = np.abs(got - want) - (GOLDEN_ATOL
+                                       + GOLDEN_RTOL * np.abs(want))
+        print(f"wave check golden case {case}: {got.shape} max_abs_err "
+              f"{np.abs(got - want).max():.3g} (bound rtol {GOLDEN_RTOL}, "
+              f"atol {GOLDEN_ATOL})")
+        if got.shape != want.shape or excess.max() > 0:
+            fail(f"wave: mfcc on the card misses golden case {case}")
+
+    # the main path: counts zeroed just before, read just after
+    out_ark = os.path.join(tmp, "wave_xv.ark")
+    zero_counts(CB, TK)
+    t0 = time.perf_counter()
+    ex = TE.WaveExtractor(cfg, params, state, wcfg, device=dev)
+    with kio.ArkWriter(out_ark, out_ark.replace(".ark", ".scp")) as w:
+        for utt, xv in ex.extract_iter(TE.read_wav_scp(scp)):
+            w.write(utt, xv)
+    main_s = time.perf_counter() - t0
+    routes = dict(TK.route_launches)
+    launches = TK.launches
+    xv_main = dict(kio.read_vec_flt_scp(out_ark.replace(".ark", ".scp")))
+    calls = routes["sm80"]
+    print(f"wave: main path read_wav_scp -> WaveExtractor (bf16, fused) -> "
+          f"ArkWriter: {len(xv_main)} x-vectors in {main_s:.3f} s host-"
+          f"inclusive (decode, resample and the first call of each bucket "
+          f"included); K1 layer launches {launches}, by design {routes} "
+          f"(expected v4 on layer 0 and v5 on layers 1-4: {calls} and "
+          f"{4 * calls}) [{tag}]")
+    if not calls or routes["sm90"] != 4 * calls or launches != 5 * calls:
+        fail("wave: the main path did not run K1 v4 on layer 0 and v5 on "
+             "layers 1-4")
+    kept = set(fmt) - skipped
+    if set(xv_main) != kept:
+        fail(f"wave: the ark holds {sorted(set(xv_main) ^ kept)} against "
+             "the workload")
+    for k, v in xv_main.items():
+        if v.shape != (cfg.xvector_dim,) or not np.isfinite(v).all():
+            fail(f"wave: x-vector {k} has shape {v.shape} or is not finite")
+
+    waves = list(TE.read_wav_scp(scp))
+    by_utt = dict(waves)
+    if {u: len(w) for u, w in waves} != lens:
+        fail("wave: decoded lengths differ from the written ones (the 16 "
+             "kHz entry must come back resampled to 8 kHz)")
+
+    # 2. the batched front end on the card against the CPU, 16 rows
+    rows = [(u, w) for u, w in waves if fmt[u] not in ("long", "silence",
+                                                       "short")
+            and len(w) <= 30 * WAVE_SR][:16]
+    wb, lb = TE.pack_wave_batch(rows, max(len(w) for _, w in rows),
+                                len(rows))
+    out = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        with torch.inference_mode():
+            feats, mask = TF.mfcc_batch(torch.from_numpy(wb).to(d),
+                                        torch.from_numpy(lb).to(d), clean)
+            vad = TF.energy_vad_batch(feats, mask)
+            cmvn = TF.sliding_cmvn_batch(feats, mask)
+        out[where] = [t.cpu() for t in (feats, mask, vad, cmvn)]
+    (fc, mc, vc, cc), (fh, mh, vh, ch) = out["card"], out["cpu"]
+    m = mh.bool()
+    feat_err = float((fc[m] - fh[m]).abs().max())
+    cmvn_err = float((cc - ch).abs().max())
+    feats_ok = torch.allclose(fc[m], fh[m], rtol=FRONT_RTOL, atol=FRONT_ATOL)
+    cmvn_ok = torch.allclose(cc, ch, rtol=FRONT_RTOL, atol=FRONT_ATOL)
+    log_e = fh[..., 0].double()
+    thresh = 5.5 + 0.5 * (log_e * mh).sum(1, keepdim=True) / mh.sum(
+        1, keepdim=True)
+    near = (log_e - thresh).abs() < VAD_NEAR
+    flips = (vc != vh) & m
+    n_frames = int(m.sum())
+    print(f"wave check front end card vs CPU ({len(rows)} rows, {n_frames} "
+          f"frames): mfcc_batch max_abs_err {feat_err:.3g}, "
+          f"sliding_cmvn_batch {cmvn_err:.3g} (bound rtol {FRONT_RTOL}, atol "
+          f"{FRONT_ATOL}); VAD decisions differing {int(flips.sum())} "
+          f"({int((flips & near).sum())} of them within {VAD_NEAR} of the "
+          f"threshold; {int((near & m).sum())} frames lie there; bound "
+          f"{VAD_FLIP_SHARE:.1%} of frames); voiced share "
+          f"{float(vh.sum()) / n_frames:.1%}")
+    if not (feats_ok and cmvn_ok and torch.equal(mc, mh)):
+        fail("wave: the front end on the card disagrees with the CPU")
+    if bool((flips & ~near).any()) or int(flips.sum()) > VAD_FLIP_SHARE \
+            * n_frames:
+        fail("wave: VAD on the card flips frames away from the threshold")
+
+    # 3. fused against unfused, bf16, the same weights
+    unfused = TE.WaveExtractor(cfg, params, state, replace(
+        wcfg, use_fused=False), device=dev)
+    zero_counts(CB, TK)
+    xv_plain = unfused.extract(waves)
+    if TK.launches:
+        fail("wave: the unfused extractor launched K1")
+    cos = min(cosine(xv_main[k], xv_plain[k]) for k in kept)
+    print(f"wave check fused vs unfused bf16: min cosine {cos:.6f} over "
+          f"{len(kept)} x-vectors (bound {COSINE_BOUND})")
+    if set(xv_plain) != kept or cos < COSINE_BOUND:
+        fail("wave: fused and unfused x-vectors disagree")
+
+    # 4. f32 on the card against the CPU, 4 short utterances
+    short = [(u, w[: 3 * WAVE_SR]) for u, w in rows[:4]]
+    f32 = TE.WaveExtractorConfig(batch_size=4, compute_dtype="float32")
+    on_card = TE.WaveExtractor(cfg, params, state, f32, device=dev
+                               ).extract(short)
+    on_cpu = TE.WaveExtractor(cfg, params, state, f32, device=cpu
+                              ).extract(short)
+    f32_err = max(float(np.abs(on_card[k] - on_cpu[k]).max()
+                        / np.abs(on_cpu[k]).max()) for k in on_cpu)
+    print(f"wave check f32 card vs CPU (4 x 3 s): normalised error "
+          f"{f32_err:.3g} (bound {F32_BOUND})")
+    if set(on_card) != set(on_cpu) or len(on_cpu) != 4 \
+            or f32_err > F32_BOUND:
+        fail("wave: f32 extraction on the card disagrees with the CPU")
+
+    # 5. the long utterance against its explicit host chain on the card
+    long_utt = next(u for u, k in fmt.items() if k == "long")
+    w = torch.from_numpy(by_utt[long_utt]).to(dev)
+    feats = TF.mfcc(w, ex.mfcc_cfg)
+    vad = TF.energy_vad(feats, ex.vad_cfg)
+    pre = TE.preprocess(feats.cpu().numpy(), vad=vad.cpu().numpy(),
+                        device=dev)
+    chain = TE.XvectorExtractor(cfg, params, state, TE.ExtractorConfig(
+        max_chunk=wcfg.max_chunk, batch_size=max(1, WAVE_BATCH // 4),
+        compute_dtype="bfloat16", use_fused=True), device=dev).extract(
+            [(long_utt, pre)])[long_utt]
+    long_err = float(np.abs(xv_main[long_utt] - chain).max()
+                     / np.abs(chain).max())
+    print(f"wave check long utterance ({len(by_utt[long_utt]) / WAVE_SR:g} "
+          f"s, {feats.shape[0]} frames, {pre.shape[0]} voiced, "
+          f"{-(-pre.shape[0] // wcfg.max_chunk)} chunks) vs mfcc -> "
+          f"energy_vad -> preprocess -> XvectorExtractor on the card: "
+          f"normalised error {long_err:.3g}, identical "
+          f"{bool(np.array_equal(xv_main[long_utt], chain))} (bound "
+          f"{LONG_BOUND})")
+    if long_err > LONG_BOUND:
+        fail("wave: the long path disagrees with its host chain")
+
+    # 6. the CLI on the card against the main path's rows
+    work = os.path.join(tmp, "wave_exp")
+    tr = TR.Trainer(TR.TrainConfig(model="no_dropout", num_targets=7185),
+                    work, device=dev)
+    tr.set_params(tree_map(lambda t: t.detach().clone(), params),
+                  tree_map(lambda t: t.detach().clone(), state))
+    checkpoints.save_iteration(tr, 0)
+    keys = sorted(kept | skipped)
+    spk2utt = os.path.join(tmp, "wave_spk2utt")
+    with open(spk2utt, "w") as f:
+        for s in range(WAVE_SPEAKERS):
+            f.write(f"spk{s} " + " ".join(keys[s::WAVE_SPEAKERS]) + "\n")
+    cli_ark = os.path.join(tmp, "wave_cli.ark")
+    zero_counts(CB, TK)
+    lines, cli_s = run_cli(extract_embedding, [
+        f"--model-dir={work}", "--model=no_dropout", "--num-targets=7185",
+        f"--wav-rspecifier=scp:{scp}", f"--output-ark={cli_ark}",
+        f"--spk2utt={spk2utt}", f"--batch-size={WAVE_BATCH}",
+        f"--device={dev}"])
+    cli_routes = dict(TK.route_launches)
+    xv_cli = dict(kio.read_vec_flt_scp(cli_ark.replace(".ark", ".scp")))
+    spk = dict(kio.read_vec_flt_scp(cli_ark.replace(".ark", "_spk.scp")))
+    same = set(xv_cli) == kept and all(np.array_equal(xv_cli[k], xv_main[k])
+                                       for k in kept)
+    print(f"wave check cli extract_embedding --wav-rspecifier: {lines[-1]}; "
+          f"{cli_s:.3f} s host-inclusive (restore, decode, extraction, "
+          f"writes); K1 layer launches by design {cli_routes}; rows "
+          f"identical to the main path's: {same}; skipped "
+          f"{sorted(skipped - set(xv_cli))}; {len(spk)} speaker means "
+          f"[{tag}]")
+    if not same or skipped & set(xv_cli) or len(spk) != WAVE_SPEAKERS:
+        fail("wave: the CLI's ark differs from in-process extraction")
+
+    # 7. augmentation on the card against the CPU
+    arng = np.random.RandomState(seed + 80)
+    x = by_utt[rows[0][0]][: 8 * WAVE_SR]
+    assets = dict(
+        rirs={"small": [(np.exp(-np.arange(4000) / 800.0)
+                         * arng.randn(4000)).astype(np.float32)],
+              "medium": [(np.exp(-np.arange(8000) / 1600.0)
+                          * arng.randn(8000)).astype(np.float32)]},
+        noises=[arng.randn(3 * WAVE_SR).astype(np.float32) * 300],
+        musics=[arng.randn(20 * WAVE_SR).astype(np.float32) * 300],
+        speeches=[by_utt[u] for u, _ in rows[1:9]])
+    aug_errs = {}
+    for kind in ("reverb", "noise", "music", "babble"):
+        a = TA.augment_utterance(kind, x, np.random.RandomState(seed),
+                                 TA.AugmentConfig(), device=dev, **assets)
+        b = TA.augment_utterance(kind, x, np.random.RandomState(seed),
+                                 TA.AugmentConfig(), device=cpu, **assets)
+        aug_errs[kind] = float(np.abs(a - b).max() / np.abs(b).max())
+    xs = torch.from_numpy(x).to(dev)
+    snr_miss = 0.0
+    for snr in sorted(set(TA.NOISE_SNRS + TA.MUSIC_SNRS + TA.BABBLE_SNRS)):
+        y = TA.mix_noise(xs, torch.from_numpy(assets["noises"][0]).to(dev),
+                         snr, offset=1234).double()
+        added = y - xs.double()
+        hit = 10 * math.log10(float(xs.double().square().mean()
+                                    / added.square().mean()))
+        snr_miss = max(snr_miss, abs(hit - snr))
+    print(f"wave check augmentation card vs CPU (8 s, RIRs of 4000/8000 "
+          f"taps): normalised error {aug_errs} (bound {AUG_BOUND}); mix_noise "
+          f"SNR off by at most {snr_miss:.3g} dB (bound {SNR_BOUND_DB})")
+    if max(aug_errs.values()) > AUG_BOUND or snr_miss > SNR_BOUND_DB:
+        fail("wave: augmentation on the card disagrees with the CPU")
+
+    # 8. card features through the compressed writer
+    cm_ark = os.path.join(tmp, "feats_cm.ark")
+    mats = {rows[i][0]: cc[i, : int(mc[i].sum())].numpy() for i in range(3)}
+    mats["short_cm2"] = cc[0, :6].numpy()
+    with kio.ArkWriter(cm_ark, cm_ark.replace(".ark", ".scp"),
+                       compress=True) as wr:
+        for k, v in mats.items():
+            wr.write(k, v)
+    back = dict(kio.read_mat_scp(cm_ark.replace(".ark", ".scp")))
+    worst = max(float((np.abs(back[k] - v).max(0) / cm_bound(v)).max())
+                for k, v in mats.items())
+    raw_mb = sum(v.nbytes for v in mats.values()) / 1e6
+    print(f"wave check compressed writer: {len(mats)} card feature matrices "
+          f"({raw_mb:.2f} MB as f32, {os.path.getsize(cm_ark) / 1e6:.2f} MB "
+          f"as CM/CM2), largest error {worst:.3f} of the quantisation bound")
+    if set(back) != set(mats) or worst > 1.0:
+        fail("wave: compressed features came back beyond CM's step")
+    return routes, waves, (cfg, params, state), files
+
+
+def phase_wave_timing(tt, TE, TK, dev, tag, waves, mdl, files):
+    """Wave-path throughput over the workload (fused and unfused in turns),
+    the device time of one 16 x 8 s batch (front end alone, then the whole
+    chain), a profiler breakdown of that batch, and host decode time per
+    audio-second by format."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from xvector_tpu_torch.io import wav as TW
+    from xvector_tpu_torch.ops import features as TF
+    cfg, params, state = mdl
+    audio_s = sum(len(w) for _, w in waves) / WAVE_SR
+    times = {True: [], False: []}
+    exs = {fused: TE.WaveExtractor(cfg, params, state, TE.WaveExtractorConfig(
+        batch_size=WAVE_BATCH, use_fused=fused), device=dev)
+        for fused in (True, False)}
+    n_out = 0
+    for i in range(WAVE_RUNS):
+        for fused in ((True, False) if i % 2 else (False, True)):
+            t0 = time.perf_counter()
+            n_out = len(exs[fused].extract(waves))   # numpy out: synced
+            times[fused].append(time.perf_counter() - t0)
+    for fused in (True, False):
+        q1, med, q3 = statistics.quantiles(times[fused], n=4)
+        print(f"timing wave extraction {'fused' if fused else 'unfused'} "
+              f"bf16 over the workload: {n_out / med:.1f} embeddings/s, "
+              f"{audio_s / med:.1f} audio-s/s host-inclusive (median "
+              f"{med:.4f} s, quartiles {q1:.4f}-{q3:.4f} s over "
+              f"{len(times[fused])} runs; {len(waves)} utterances, "
+              f"{audio_s:.1f} audio-s, {n_out} kept) [{tag}]")
+
+    # one 16 x 8 s batch
+    n8 = 8 * WAVE_SR
+    rows = [(u, w[:n8]) for u, w in waves if len(w) >= n8][:WAVE_BATCH]
+    wb, lb = TE.pack_wave_batch(rows, n8, len(rows))
+    ex = exs[True]
+    wd = torch.from_numpy(wb).to(dev)
+    ld = torch.from_numpy(lb).to(dev)
+
+    def front():
+        feats, mask = TF.mfcc_batch(wd, ld, ex.mfcc_cfg)
+        vad = TF.energy_vad_batch(feats, mask, ex.vad_cfg)
+        feats = TF.sliding_cmvn_batch(feats, mask)
+        return TF.compact_voiced(feats, vad)
+
+    with torch.inference_mode():
+        front_ms = cuda_ms(front, 20, 3)
+        full_ms = cuda_ms(lambda: ex._fn(ex.params, ex.state, wd, ld), 20, 3)
+    b_audio = len(rows) * 8
+    print(f"timing wave batch {len(rows)}x8 s fused bf16 (CUDA events): "
+          f"front end alone (mfcc_batch, energy_vad_batch, "
+          f"sliding_cmvn_batch, compact_voiced) {front_ms:.4f} ms = "
+          f"{b_audio / front_ms * 1e3:.1f} audio-s/s; front end + K1 + "
+          f"pooling + embedding {full_ms:.4f} ms = "
+          f"{len(rows) / full_ms * 1e3:.1f} embeddings/s, "
+          f"{b_audio / full_ms * 1e3:.1f} audio-s/s [{tag}]")
+
+    # where that batch's device time goes, host upload included
+    stages = ("upload", "mfcc_batch", "energy_vad_batch",
+              "sliding_cmvn_batch", "compact_voiced", "K1", "pooling+embed")
+
+    def staged():
+        with record_function("upload"):       # pinned, as the extractor
+            w, n = ex._upload(wb), ex._upload(lb)
+        with record_function("mfcc_batch"):
+            feats, mask = TF.mfcc_batch(w, n, ex.mfcc_cfg)
+        with record_function("energy_vad_batch"):
+            vad = TF.energy_vad_batch(feats, mask, ex.vad_cfg)
+        with record_function("sliding_cmvn_batch"):
+            feats = TF.sliding_cmvn_batch(feats, mask)
+        with record_function("compact_voiced"):
+            feats, vmask = TF.compact_voiced(feats, vad)
+        with record_function("K1"):
+            h = TK.fused_frame_stack(cfg, ex.params, ex.state, feats, vmask)
+        with record_function("pooling+embed"):
+            pooled = tt.stats_pooling(h, vmask[..., None])
+            e0 = ex.params["embed"][0]
+            xv = (pooled.to(torch.bfloat16).float()
+                  @ e0["w"].to(torch.bfloat16).float()) + e0["b"]
+        return xv.cpu()
+
+    runs = 3
+    with torch.inference_mode():
+        staged()
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            staged()                          # ends in a copy to the host
+            walls.append((time.perf_counter() - t0) * 1e6)
+        plain_us = statistics.median(walls)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                staged()
+            wall_us = (time.perf_counter() - t0) * 1e6 / runs
+    def is_k1(name):
+        return any(k in name for k in K1_KERNEL_NAMES)
+
+    # each kernel under its stage and the outermost aten op that launched
+    # it; K1's layers launch through ctypes, with no aten op, so they are
+    # taken by name below
+    groups = {}
+    for e in prof.events():
+        kern = [k for k in e.kernels if not is_k1(k.name)]
+        if not kern:
+            continue
+        chain, p = [], e
+        while p is not None and p.name not in stages:
+            chain.append(p.name)
+            p = p.cpu_parent
+        if p is None:
+            continue
+        op = next((c for c in reversed(chain) if c.startswith("aten::")),
+                  chain[-1] if chain else "?")
+        key = f"{p.name}/{op.removeprefix('aten::')}"
+        groups[key] = groups.get(key, 0.0) + sum(k.duration for k in kern)
+    # kernels and copies; the record_function ranges also show on the
+    # device's timeline as user annotations and are left out
+    dev_events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)),
+                        key=lambda e: e.time_range.start)
+    busy_us = sum(e.time_range.elapsed_us() for e in dev_events) / runs
+    layer_us = [e.time_range.elapsed_us() for e in dev_events
+                if is_k1(e.name)]
+    groups["K1/layer kernels"] = sum(layer_us)
+    nl = cfg.num_frame_layers
+    if not dev_events:
+        print(f"profile wave batch: the profiler recorded no device events; "
+              f"breakdown not measured [{tag}]")
+        return
+    names = {}
+    for e in dev_events:
+        names[e.name] = names.get(e.name, 0.0) + e.time_range.elapsed_us()
+    print("profile wave batch top device kernels (us per batch): "
+          + "; ".join(f"{n[:60]} {us / runs:.1f}" for n, us in sorted(
+              names.items(), key=lambda kv: -kv[1])[:12]) + f" [{tag}]")
+    per_stage = {s: sum(v for k, v in groups.items()
+                        if k.startswith(s + "/")) / runs for s in stages}
+    per_stage["not attributed"] = busy_us - sum(per_stage.values())
+    print(f"profile wave batch {len(rows)}x8 s fused bf16 (3 runs, upload "
+          f"from numpy to the x-vectors back on the host): device busy "
+          f"{busy_us:.1f} us of {wall_us:.1f} us host-inclusive under the "
+          f"profiler = {1 - busy_us / wall_us:.1%} device idle "
+          f"({1 - busy_us / plain_us:.1%} of the unprofiled median, "
+          f"{plain_us:.1f} us over 10 runs); by stage: "
+          + "; ".join(f"{s} {us:.1f} us" for s, us in per_stage.items())
+          + f" [{tag}]")
+    print("profile wave batch by stage/op (us per batch): " + "; ".join(
+        f"{k} {v / runs:.1f}" for k, v in sorted(
+            groups.items(), key=lambda kv: -kv[1])[:20]) + f" [{tag}]")
+    if len(layer_us) == nl * runs:
+        print("profile wave batch K1 per layer (us): " + ", ".join(
+            f"L{l} {statistics.median(layer_us[l::nl]):.1f}"
+            for l in range(nl)) + f" [{tag}]")
+
+    # host decode time per audio-second by format
+    dec = {}
+    for kind, label in (("wav", "WAV PCM16"), ("sph_pcm10", "SPHERE PCM"),
+                        ("sph_ulaw", "SPHERE mu-law"),
+                        ("shorten", "SPHERE shorten")):
+        path = next(p for u, p in files.items() if u.endswith("_" + kind))
+        reps = 1 if kind == "shorten" else 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            s, _ = TW.load_wave(path)
+        dec[label] = (time.perf_counter() - t0) / reps / (len(s) / WAVE_SR)
+    print("timing wave decode on the host, ms per audio-second: " + "; ".join(
+        f"{k} {v * 1e3:.4f}" for k, v in dec.items()) + f" [{tag}]")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1535,6 +2127,13 @@ def main(argv=None) -> int:
         phase_presets(TR, CB, TK, TE, dev, args.seed, tag, tmp)
     conv = phase_conv_timing(CB, dev, args.seed, tag)
 
+    # 11. the wave front end: wav.scp -> WaveExtractor (K1) -> ark, its
+    # checks, then its timings
+    with tempfile.TemporaryDirectory() as tmp:
+        wave_routes, waves, mdl, files = phase_wave(
+            tt, TE, CB, TK, kio, dev, args.seed, tag, tmp)
+        phase_wave_timing(tt, TE, TK, dev, tag, waves, mdl, files)
+
     # K1: the main path runs layer 0 on v4 and layers 1-4 on v5; "ms" is the
     # layer kernels' own time per stack call (profiler), without the
     # wrapper's parameter folding.  Each row counts the main path's launches
@@ -1562,6 +2161,9 @@ def main(argv=None) -> int:
             "shapes": "no_dropout 32x1024 (ms: the layer kernels per call)",
             # the layer launches of its design over extract_embedding's run
             "cli_launches": cli_k1["sm90" if key == "rule" else "sm80"],
+            # ... and over the wave path's main run (phase 11)
+            "wave_launches": wave_routes["sm90" if key == "rule"
+                                         else "sm80"],
             **({"launches_by_design": main_routes} if key == "rule" else {}),
         })
     # K2-K4: the main path makes one k=5 and one k=7 call of each per

@@ -15,7 +15,11 @@ Bounds, as max |kernel − plain| / max |plain|: 1e-2 for K1, K2 and K4,
 whose outputs are bf16 (both round the same operands to bf16 and
 accumulate in f32; a different summation order can flip the bf16 rounding
 of an output or an intermediate, nothing more); 1e-3 for K3's f32 output,
-where only the order of the f32 sums differs."""
+where only the order of the f32 sums differs.  The wave front end on the
+card is held to the CPU at the CPU suite's bounds (features rtol 1e-4,
+atol 2e-3; golden fixtures rtol 2e-4, atol 1e-3; augmentation 1e-4)."""
+
+import os
 
 import numpy as np
 import pytest
@@ -23,12 +27,16 @@ import torch
 
 from xvector_tpu_torch.extract import extractor as TE
 from xvector_tpu_torch.models import tdnn as tt
+from xvector_tpu_torch.ops import augment as AUG
 from xvector_tpu_torch.ops import conv_bwd as CB
+from xvector_tpu_torch.ops import features as FE
 from xvector_tpu_torch.ops import tdnn_kernel as TK
 from xvector_tpu_torch.train import trainer as TR
 
 BOUND = 1e-2
 DW_BOUND = 1e-3
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
+                      "feature_golden.npz")
 
 
 @pytest.fixture
@@ -98,6 +106,122 @@ def test_fused_extraction_matches_unfused(cuda_device):
         a, b = out[False][utt], out[True][utt]
         cos = float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))
         assert cos >= 0.999, (utt, cos)
+
+
+def _waves(lens, seed=0):
+    """(B, max) int16 batch of noise bursts with silent gaps, and lens."""
+    rng = np.random.RandomState(seed)
+    waves = np.zeros((len(lens), max(lens)), np.int16)
+    for i, n in enumerate(lens):
+        env = np.repeat(rng.rand(-(-n // 800)) > 0.3, 800)[:n]
+        waves[i, :n] = np.clip(rng.randn(n) * 3000 * env, -32768, 32767)
+    return waves, np.asarray(lens, np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tf32", [False, True])
+def test_front_end_on_card_matches_cpu(cuda_device, tf32):
+    """MFCC, VAD and CMVN on the card against the CPU, with TF32 off and
+    on: the spectral products run in f64, where TF32 does not reach.
+    VAD decisions may differ only where a frame's log energy lies within
+    1e-3 of its row's threshold."""
+    waves, lens = _waves([64000, 30000, 80000, 1000, 50], seed=1)
+    cfg = FE.MfccConfig(dither=0.0)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        out = {}
+        for where, dev in (("card", cuda_device), ("cpu", "cpu")):
+            feats, mask = FE.mfcc_batch(torch.from_numpy(waves).to(dev),
+                                        torch.from_numpy(lens).to(dev), cfg)
+            vad = FE.energy_vad_batch(feats, mask)
+            cmvn = FE.sliding_cmvn_batch(feats, mask)
+            out[where] = [t.cpu() for t in (feats, mask, vad, cmvn)]
+        g = np.load(GOLDEN)
+        for case in range(3):
+            got = FE.mfcc(torch.from_numpy(g[f"wave_{case}"].astype(
+                np.float32)).to(cuda_device), cfg).cpu().numpy()
+            np.testing.assert_allclose(got, g[f"mfcc_{case}"], rtol=2e-4,
+                                       atol=1e-3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    (fc, mc, vc, cc), (fh, mh, vh, ch) = out["card"], out["cpu"]
+    assert torch.equal(mc, mh)
+    m = mh.bool()
+    np.testing.assert_allclose(fc[m].numpy(), fh[m].numpy(), rtol=1e-4,
+                               atol=2e-3)
+    np.testing.assert_allclose(cc.numpy(), ch.numpy(), rtol=1e-4, atol=2e-3)
+    log_e = fh[..., 0].double()
+    mean = (log_e * mh).sum(1, keepdim=True) / mh.sum(1, keepdim=True)
+    near = (log_e - (5.5 + 0.5 * mean)).abs() < 1e-3
+    assert not ((vc != vh) & ~near).any()
+
+
+@pytest.mark.cuda
+def test_front_end_dither_repeats_on_card(cuda_device):
+    """The tail fix's scatter sends duplicate slots to a dummy row, so a
+    seeded dithered run repeats bit for bit on the card."""
+    waves, lens = _waves([8000, 300, 5000], seed=2)
+    w = torch.from_numpy(waves).to(cuda_device)
+    n = torch.from_numpy(lens).to(cuda_device)
+
+    def run(seed):
+        gen = torch.Generator(device=cuda_device).manual_seed(seed)
+        return FE.mfcc_batch(w, n, FE.MfccConfig(), gen)[0]
+
+    a, b, c = run(3), run(3), run(4)
+    assert torch.equal(a, b) and bool((a != c).any())
+
+
+@pytest.mark.cuda
+def test_wave_extractor_fused_matches_unfused(cuda_device):
+    """bf16 wave extraction with K1 (v4 on layer 0, v5 on layers 1-4)
+    against the unfused frame stack on the same weights."""
+    cfg, params, state = _model("no_dropout", cuda_device)
+    rng = np.random.RandomState(5)
+    utts = [(f"u{i}", _waves([n], seed=10 + i)[0][0].astype(np.float32))
+            for i, n in enumerate([8000, 20000, 64000, 3000, 40000])]
+    utts.append(("silence", np.zeros(8000, np.float32)))
+    utts.append(("long", rng.randn(90000).astype(np.float32) * 2000))
+    out = {}
+    for fused in (False, True):
+        TK.launches = 0
+        for name in TK.route_launches:
+            TK.route_launches[name] = 0
+        ex = TE.WaveExtractor(cfg, params, state, TE.WaveExtractorConfig(
+            batch_size=2, max_chunk=800, use_fused=fused),
+            device=cuda_device)
+        out[fused] = ex.extract(utts)
+        if fused:
+            calls = TK.route_launches["sm80"]
+            assert calls > 0 and TK.route_launches["sm90"] == 4 * calls
+        else:
+            assert TK.launches == 0
+    assert set(out[True]) == set(out[False]) == {u for u, _ in utts
+                                                 if u != "silence"}
+    for utt, a in out[False].items():
+        b = out[True][utt]
+        cos = float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))
+        assert cos >= 0.999, (utt, cos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["reverb", "noise", "music", "babble"])
+def test_augment_on_card_matches_cpu(cuda_device, kind):
+    rng = np.random.RandomState(6)
+    x = (rng.randn(16000) * 1000).astype(np.float32)
+    assets = dict(rirs=[(np.exp(-np.arange(4000) / 800)
+                         * rng.randn(4000)).astype(np.float32)],
+                  noises=[rng.randn(5000).astype(np.float32)],
+                  musics=[rng.randn(30000).astype(np.float32)],
+                  speeches=[rng.randn(9000).astype(np.float32)
+                            for _ in range(8)])
+    got = AUG.augment_utterance(kind, x, np.random.RandomState(1),
+                                AUG.AugmentConfig(), device=cuda_device,
+                                **assets)
+    want = AUG.augment_utterance(kind, x, np.random.RandomState(1),
+                                 AUG.AugmentConfig(), device="cpu", **assets)
+    assert np.abs(got - want).max() / np.abs(want).max() <= 1e-4
 
 
 def _err(got, want):

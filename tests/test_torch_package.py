@@ -14,11 +14,14 @@ import pytest
 import torch
 
 from xvector_tpu.models import tdnn as jt
+from xvector_tpu_torch.cli import extract_embedding
 from xvector_tpu_torch.extract import extractor as TE
 from xvector_tpu_torch.models import tdnn as tt
 from xvector_tpu_torch.models.convert import (params_from_numpy,
                                               params_to_numpy)
+from xvector_tpu_torch.ops import augment as AUG
 from xvector_tpu_torch.ops import conv_bwd as CB
+from xvector_tpu_torch.train import checkpoints as C
 from xvector_tpu_torch.train import trainer as TR
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -69,12 +72,19 @@ def test_no_jax_import_in_source(path):
 
 @pytest.mark.parametrize("entry", ["init_params", "params_from_numpy",
                                    "extractor", "preprocess", "Trainer",
-                                   "conv1d_same_fused_bwd"])
+                                   "conv1d_same_fused_bwd", "WaveExtractor",
+                                   "make_wave_to_xvector",
+                                   "augment_utterance", "cli_wav"])
 def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tt.MODEL_ZOO["tiny"]
     tp, ts = tt.init_params(torch.Generator().manual_seed(0), cfg, 3,
                             device="cpu")
+    if entry == "cli_wav":       # a model dir and a wav.scp the CLI can read
+        C.save_iteration(TR.Trainer(TR.TrainConfig(model="tiny",
+                                                   num_targets=3),
+                                    str(tmp_path / "exp"), device="cpu"), 0)
+        (tmp_path / "wav.scp").write_text("")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
         "init_params": lambda: tt.init_params(torch.Generator(), cfg, 3),
         "params_from_numpy": lambda: params_from_numpy(
@@ -88,6 +98,15 @@ def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
         "conv1d_same_fused_bwd": lambda: CB.conv1d_same_fused_bwd(
             torch.zeros(2, 8, 16, dtype=torch.bfloat16, device="meta"),
             torch.zeros(3, 16, 8, dtype=torch.bfloat16, device="meta"), 1),
+        "WaveExtractor": lambda: TE.WaveExtractor(cfg, tp, ts),
+        "make_wave_to_xvector": lambda: TE.make_wave_to_xvector(cfg),
+        "augment_utterance": lambda: AUG.augment_utterance(
+            "music", np.ones(100, np.float32), np.random.RandomState(0),
+            AUG.AugmentConfig(), musics=[np.ones(50, np.float32)]),
+        "cli_wav": lambda: extract_embedding.main([
+            f"--model-dir={tmp_path / 'exp'}", "--model=tiny",
+            "--num-targets=3", f"--wav-rspecifier=scp:{tmp_path}/wav.scp",
+            f"--output-ark={tmp_path / 'xv.ark'}"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

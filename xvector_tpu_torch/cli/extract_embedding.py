@@ -1,20 +1,28 @@
-"""Extraction CLI: features rspecifier → x-vector ark+scp.
+"""Extraction CLI: features or waveforms → x-vector ark+scp.
 
 Counterpart of ``xvector_tpu/cli/extract_embedding.py`` (the reference's
-``extract_embedding.py:94-150`` + ``extract_xvectors.sh``): reads a
-feature rspecifier (ark/scp/pipe, or pass ``--apply-cmvn`` / ``--vad-scp``
-to run the preprocessing here), extracts chunk-and-averaged x-vectors in
-batches, and writes a Kaldi ark+scp.  Idempotent: skips when the output's
-``.done`` marker exists.  The model comes from ``--model-dir``'s
-``model_final``, else from its newest complete checkpoint (``model_0``
-included).  In bf16, stats-pooling topologies run their frame stack
-through the fused kernel (``ops/tdnn_kernel``); attention pooling and f32
-extraction take the unfused path.  ``--device`` (default ``cuda``) picks
-the device.
+``extract_embedding.py:94-150`` + ``extract_xvectors.sh``).  It takes
+exactly one input:
+
+* ``--feats-rspecifier``: a feature ark/scp/pipe (pass ``--apply-cmvn`` /
+  ``--vad-scp`` to run the preprocessing here), extracted in
+  chunk-and-averaged batches;
+* ``--wav-rspecifier``: a Kaldi wav.scp (``scp:`` or ``scp,p:`` prefix
+  optional; WAV, SPHERE incl. embedded shorten, ``#chN``, ``cmd |``
+  pipes), run through the wave front end (MFCC, energy VAD, sliding CMVN,
+  voiced-frame selection) and the model on the device, one batch per
+  length bucket.
+
+It writes a Kaldi ark+scp.  Idempotent: skips when the output's ``.done``
+marker exists.  The model comes from ``--model-dir``'s ``model_final``,
+else from its newest complete checkpoint (``model_0`` included).  In
+bf16, stats-pooling topologies run their frame stack through the fused
+kernel (``ops/tdnn_kernel``); attention pooling and f32 extraction take
+the unfused path.  ``--device`` (default ``cuda``) picks the device.
 
     python -m xvector_tpu_torch.cli.extract_embedding --model-dir=EXP \\
         --model=no_dropout --num-targets=7185 \\
-        --feats-rspecifier=ark:feats.ark --output-ark=xvector.ark
+        --wav-rspecifier=scp:wav.scp --output-ark=xvector.ark
 """
 
 from __future__ import annotations
@@ -23,8 +31,9 @@ import argparse
 import os
 import sys
 
-from ..extract.extractor import (ExtractorConfig, XvectorExtractor,
-                                 preprocess, speaker_means)
+from ..extract.extractor import (ExtractorConfig, WaveExtractor,
+                                 WaveExtractorConfig, XvectorExtractor,
+                                 preprocess, read_wav_scp, speaker_means)
 from ..io import kaldi_ark as kio
 from ..models import tdnn
 from ..ops import tdnn_kernel
@@ -42,9 +51,12 @@ def get_args(argv=None):
     p.add_argument("--model", default="ModelWithoutDropout")
     p.add_argument("--num-targets", type=int, required=True)
     p.add_argument("--feats-rspecifier", default="",
-                   help="feature ark/scp/pipe input")
+                   help="feature ark/scp/pipe input (exclusive with "
+                        "--wav-rspecifier)")
     p.add_argument("--wav-rspecifier", default="",
-                   help="wav.scp input; not ported yet (ROADMAP A8)")
+                   help="wav.scp input: MFCC, VAD, CMVN, voiced-frame "
+                        "selection and the model run on the device, one "
+                        "batch per length bucket")
     p.add_argument("--vad-scp", default="",
                    help="optional vad.scp for voiced-frame selection")
     p.add_argument("--apply-cmvn", action="store_true",
@@ -78,13 +90,10 @@ def main(argv=None):
     if args.reference_h5:
         sys.exit("--reference-h5 is not ported yet: reading the reference's "
                  "model.h5 waits for the h5 export of ROADMAP A5")
-    if args.wav_rspecifier:
-        sys.exit("--wav-rspecifier is not ported yet: extraction from "
-                 "waveforms waits for the front end of ROADMAP A8")
     if not args.model_dir:
         sys.exit("pass --model-dir")
-    if not args.feats_rspecifier:
-        sys.exit("pass --feats-rspecifier")
+    if bool(args.feats_rspecifier) == bool(args.wav_rspecifier):
+        sys.exit("pass exactly one of --feats-rspecifier/--wav-rspecifier")
     preset = tdnn.REFERENCE_CLASS_TO_PRESET.get(args.model, args.model)
     if preset not in tdnn.MODEL_ZOO:
         sys.exit(f"unknown model {args.model!r}")
@@ -104,30 +113,43 @@ def main(argv=None):
         # in iteration 0 still extracts
         checkpoints.restore_latest(trainer)
 
-    vad = dict(kio.read_vec_flt_scp(args.vad_scp)) if args.vad_scp else {}
-    ex = XvectorExtractor(
-        trainer.model_cfg, trainer.params, trainer.state,
-        ExtractorConfig(min_chunk=args.min_chunk_size,
-                        max_chunk=args.chunk_size,
-                        batch_size=args.batch_size,
-                        compute_dtype=args.compute_dtype,
-                        # K1 takes bf16 operands; an f32 run stays unfused
-                        use_fused=(args.compute_dtype == "bfloat16"
-                                   and tdnn_kernel.supports(
-                                       trainer.model_cfg))),
-        device=args.device)
+    common = dict(min_chunk=args.min_chunk_size, max_chunk=args.chunk_size,
+                  batch_size=args.batch_size,
+                  compute_dtype=args.compute_dtype,
+                  # K1 takes bf16 operands; an f32 run stays unfused
+                  use_fused=(args.compute_dtype == "bfloat16"
+                             and tdnn_kernel.supports(trainer.model_cfg)))
 
-    def stream():
-        reader = (kio.read_mat_scp(args.feats_rspecifier)
-                  if args.feats_rspecifier.startswith("scp")
-                  else kio.read_mat_ark(args.feats_rspecifier))
-        for i, (utt, feats) in enumerate(reader):
-            if args.num_shards > 1 and i % args.num_shards != args.shard:
-                continue
-            if args.apply_cmvn or utt in vad:
-                feats = preprocess(feats, vad=vad.get(utt),
-                                   device=args.device)
-            yield utt, feats
+    def shard(reader):
+        for i, item in enumerate(reader):
+            if args.num_shards == 1 or i % args.num_shards == args.shard:
+                yield item
+
+    if args.wav_rspecifier:
+        ex = WaveExtractor(trainer.model_cfg, trainer.params, trainer.state,
+                           WaveExtractorConfig(**common), device=args.device)
+        wav_scp = args.wav_rspecifier
+        for prefix in ("scp:", "scp,p:"):
+            wav_scp = wav_scp.removeprefix(prefix)
+
+        def stream():
+            yield from shard(read_wav_scp(wav_scp))
+    else:
+        vad = (dict(kio.read_vec_flt_scp(args.vad_scp)) if args.vad_scp
+               else {})
+        ex = XvectorExtractor(trainer.model_cfg, trainer.params,
+                              trainer.state, ExtractorConfig(**common),
+                              device=args.device)
+
+        def stream():
+            reader = (kio.read_mat_scp(args.feats_rspecifier)
+                      if args.feats_rspecifier.startswith("scp")
+                      else kio.read_mat_ark(args.feats_rspecifier))
+            for utt, feats in shard(reader):
+                if args.apply_cmvn or utt in vad:
+                    feats = preprocess(feats, vad=vad.get(utt),
+                                       device=args.device)
+                yield utt, feats
 
     n = 0
     xvectors = {}

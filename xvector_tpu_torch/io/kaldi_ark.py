@@ -2,9 +2,9 @@
 
 Own copy of what extraction needs from ``xvector_tpu/io/kaldi_ark.py``
 (the port imports nothing of that package): rspecifier parsing with pipe
-support, float matrices (including compressed CM/CM2/CM3 reads), float
-vectors, and the ark+scp writer.  The native libxta readers and the
-compressed-matrix writer are not ported yet.
+support, float matrices (including compressed CM/CM2/CM3 reads and the
+CM/CM2 writer), float vectors, and the ark+scp writer.  The native libxta
+readers are not ported yet.
 
 Format notes
 ------------
@@ -255,13 +255,74 @@ def _read_compressed_mat(fd, fmt: bytes) -> np.ndarray:
     return out.T.astype(np.float32)
 
 
-def write_mat(file_or_fd, mat: np.ndarray, key: str = ""):
-    """Write one float32/float64 matrix in Kaldi binary format."""
+def _float_to_uint16(f: np.ndarray, gmin: float, grange: float) -> np.ndarray:
+    scaled = (np.asarray(f, np.float64) - gmin) / grange * 65535.0
+    return np.clip(np.round(scaled), 0, 65535).astype("<u2")
+
+
+def _write_compressed_mat(fd, mat: np.ndarray):
+    """Encode Kaldi CompressedMatrix (inverse of :func:`_read_compressed_mat`)
+    as ``copy-feats --compress=true`` would: the per-column percentile
+    format ``CM`` for matrices of more than 8 rows, two-byte-linear ``CM2``
+    otherwise."""
+    m = np.asarray(mat, np.float64)
+    rows, cols = m.shape
+    gmin = float(m.min()) if m.size else 0.0
+    grange = (float(m.max()) - gmin) if m.size else 1.0
+    if grange <= 0.0:
+        grange = 1e-5
+    if rows <= 8:
+        fd.write(b"CM2")
+        fd.write(struct.pack("<ffii", gmin, grange, rows, cols))
+        codes = _float_to_uint16(m, gmin, grange)
+        fd.write(np.ascontiguousarray(codes).tobytes())
+        return
+    fd.write(b"CM ")
+    fd.write(struct.pack("<ffii", gmin, grange, rows, cols))
+    cm = m.T                                   # column-major like Kaldi
+    srt = np.sort(cm, axis=1)
+    quarter = rows // 4
+    # per-column percentile header, quantized then forced strictly
+    # increasing in uint16 space (Kaldi ComputeColHeader semantics)
+    hdr = np.stack([_float_to_uint16(srt[:, 0], gmin, grange),
+                    _float_to_uint16(srt[:, quarter], gmin, grange),
+                    _float_to_uint16(srt[:, 3 * quarter], gmin, grange),
+                    _float_to_uint16(srt[:, rows - 1], gmin, grange)],
+                   axis=1).astype(np.int64)
+    # cap each entry below the one above (so the ladder cannot overflow
+    # the top), then push each entry above the one below (so it cannot
+    # underflow past 0)
+    for i in range(2, -1, -1):
+        hdr[:, i] = np.minimum(hdr[:, i], hdr[:, i + 1] - 1)
+    hdr[:, 0] = np.maximum(hdr[:, 0], 0)
+    for i in range(1, 4):
+        hdr[:, i] = np.maximum(hdr[:, i], hdr[:, i - 1] + 1)
+    hdr = np.minimum(hdr, 65535).astype("<u2")
+    fd.write(np.ascontiguousarray(hdr).tobytes())
+    c0, c25, c75, c100 = (
+        _uint16_to_float(hdr[:, i].astype(np.float64), gmin, grange)[:, None]
+        for i in range(4))
+    # piecewise-linear inverse of CharToFloat, per segment
+    lo = np.clip(np.round(64.0 * (cm - c0) / (c25 - c0)), 0, 64)
+    mid = np.clip(np.round(64.0 + 128.0 * (cm - c25) / (c75 - c25)), 65, 192)
+    hi = np.clip(np.round(192.0 + 63.0 * (cm - c75) / (c100 - c75)), 193, 255)
+    codes = np.where(cm < c25, lo, np.where(cm < c75, mid, hi))
+    fd.write(np.ascontiguousarray(codes.astype(np.uint8)).tobytes())
+
+
+def write_mat(file_or_fd, mat: np.ndarray, key: str = "",
+              compress: bool = False):
+    """Write one float32/float64 matrix in Kaldi binary format;
+    ``compress=True`` writes a Kaldi CompressedMatrix (lossy uint8/uint16
+    codes, ~4x smaller)."""
     fd = open_or_fd(file_or_fd, mode="wb")
     try:
         if key:
             fd.write((key + " ").encode("latin1"))
         fd.write(b"\x00B")
+        if compress:
+            _write_compressed_mat(fd, mat)
+            return
         if mat.dtype == np.float64:
             fd.write(b"DM ")
             data = mat.astype("<f8", copy=False)
@@ -385,10 +446,13 @@ def read_vec_flt_scp(file_or_fd) -> Iterator[Tuple[str, np.ndarray]]:
 class ArkWriter:
     """Write ``key → matrix/vector`` entries to an ark with a paired scp
     (the reference's ``copy-vector ark:- ark,scp:a.ark,a.scp``); the scp
-    offset points at the ``\\x00B`` marker, matching Kaldi's convention."""
+    offset points at the ``\\x00B`` marker, matching Kaldi's convention.
+    ``compress=True`` writes matrices as Kaldi CompressedMatrix."""
 
-    def __init__(self, ark_path: str, scp_path: str | None = None):
+    def __init__(self, ark_path: str, scp_path: str | None = None,
+                 compress: bool = False):
         self.ark_path = ark_path
+        self.compress = compress
         self._ark = open(ark_path, "wb")
         self._scp = open(scp_path, "w") if scp_path else None
 
@@ -399,7 +463,7 @@ class ArkWriter:
         if array.ndim == 1:
             write_vec_flt(buf, array)
         else:
-            write_mat(buf, array)
+            write_mat(buf, array, compress=self.compress)
         self._ark.write(buf.getvalue())
         if self._scp:
             self._scp.write(f"{key} {self.ark_path}:{offset}\n")
