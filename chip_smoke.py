@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's extraction, training and wave paths on one GPU.
+"""Drive the PyTorch port's extraction, training, wave and scoring paths
+on one GPU.
 
 Run from the repository root (one card, no arguments needed):
 
@@ -77,7 +78,11 @@ Phases; any failure raises and the exit code is non-zero:
    that must match an uninterrupted one bit for bit, ``cli.eval_dnn``, and
    ``cli.extract_embedding`` on the serving ark with ``--spk2utt`` (the
    main extraction path: K1 v4 on layer 0 and v5 on layers 1-4), whose
-   ark must equal an in-process fused extractor's rows;
+   ark must equal an in-process fused extractor's rows; then, where
+   ``h5py`` is installed, ``export_reference_h5`` of ``model_final`` and
+   ``cli.extract_embedding --reference-h5``, whose rows must equal the
+   ``--model-dir`` run's (one line says the export is skipped without
+   ``h5py``);
 10. the ``attention`` and ``am_softmax_tricks`` presets at full width, two
    minibatch steps each: attention through K2-K4 and its unfused
    extraction on the card against the CPU's in bf16 (5e-2 normalised) and
@@ -102,7 +107,34 @@ Phases; any failure raises and the exit code is non-zero:
    features through the compressed writer within CM's step; timing lines:
    throughput over the workload, one 16 x 8 s batch by CUDA events and by
    the profiler (stages, K1 per layer, idle share), host decode time by
-   format.
+   format;
+12. the scoring back end at NIST SRE16 evaluation size, on synthetic
+   512-d x-vectors from ``--seed`` drawn from a planted two-covariance
+   model (64 speaker dimensions): a PLDA training set of 4,000 speakers x
+   16, 2,272 unlabelled in-domain majors, 802 enrolment models (1 or 3
+   segments, ``num_utts``), 9,294 test segments and ~1.99M trials (~1.9%
+   target) in two conditions (``tgl``/``yue``); in domain the speaker part
+   is scaled by 1.6 and shifted by 1.5.  The main path (launch counts
+   zeroed just before and read just after; no kernel runs there) is
+   ``Recipe(RecipeConfig(..., device="cuda")).score_sre16`` (LDA to 100,
+   the device EM at >= 2,000 speakers, adaptation, both host scorings,
+   pooled and per-condition metrics), then ``score_trials_device`` over
+   the 802 x 9,294 grid for both models.  Checks: device scores against
+   the recipe's host f64 scores on the full trial list (1e-3 x span) and
+   EER within 5e-4; ``project_device`` against ``Plda.project`` (2e-4,
+   with and without ``simple_length_norm``); the device EM against the
+   host f64 EM on the same training set (sorted psi rtol 5e-3, atol 5e-4;
+   LLRs 2e-2 x span); with TF32 allowed by the caller, the EM and the
+   score matrix equal the TF32-off run bit for bit and the caller's
+   setting survives; both variants' EER under 2 x the planted model's
+   (oracle) EER + 0.01, adapted scores differing from out-of-domain ones,
+   both conditions reported; phase 11's wave ark read back with
+   ``read_vec_flt_matrix`` (rows equal to those written) and scored on
+   the card against the host (1e-3 x span).  Timing lines: the device EM
+   (first and warm call, CUDA events and host-inclusive, device busy)
+   beside the host f64 EM, ``score_matrix`` against its bound and its
+   profile, trials/s of ``score_trials_device`` and of the host scorer,
+   ``eer`` + ``min_dcf``, and ``score_sre16``'s wall time by stage.
 
 The line before the last is ``{"kernels": [...]}`` (K1 and K2-K4 in the
 main path's designs, and rows for the "sm80" designs with their main-path
@@ -1059,7 +1091,8 @@ def phase_cli(TR, TA, CB, TK, kio, dev, seed, tag, tmp):
     uninterrupted one bit for bit → eval_dnn → extract_embedding (K1) held
     to an in-process extractor.  Returns the launches of its own main
     paths: K2-K4 by design over the train_dnn run, K1 layers by design
-    over the extract_embedding run."""
+    over the extract_embedding run, and (the model dir, the feature ark,
+    the extract_embedding ark)."""
     from xvector_tpu_torch.cli import eval_dnn, extract_embedding, train_dnn
     from xvector_tpu_torch.extract import extractor as TE
     from xvector_tpu_torch.models.convert import tree_leaves
@@ -1276,7 +1309,7 @@ def phase_cli(TR, TA, CB, TK, kio, dev, seed, tag, tmp):
     if not same:
         fail("cli: the extract_embedding ark differs from in-process "
              "extraction")
-    return routes, k1_routes
+    return routes, k1_routes, (work, feats_ark, out_ark)
 
 
 def phase_presets(TR, CB, TK, TE, dev, seed, tag, tmp):
@@ -1647,7 +1680,8 @@ def phase_wave(tt, TE, CB, TK, kio, dev, seed, tag, tmp):
     """The wave front end at full ``no_dropout`` width: read_wav_scp →
     WaveExtractor (bf16, K1) → ArkWriter as the main path, then its eight
     checks.  Returns (the main path's K1 layer launches by design, the
-    decoded workload, the model)."""
+    decoded workload, the model, the files, and the main path's ark with
+    the x-vectors written to it)."""
     import scipy.signal  # noqa: F401  (resample takes the band-limited branch)
     from xvector_tpu_torch.cli import extract_embedding
     from xvector_tpu_torch.io import wav as TW
@@ -1685,9 +1719,11 @@ def phase_wave(tt, TE, CB, TK, kio, dev, seed, tag, tmp):
     zero_counts(CB, TK)
     t0 = time.perf_counter()
     ex = TE.WaveExtractor(cfg, params, state, wcfg, device=dev)
+    written = {}
     with kio.ArkWriter(out_ark, out_ark.replace(".ark", ".scp")) as w:
         for utt, xv in ex.extract_iter(TE.read_wav_scp(scp)):
             w.write(utt, xv)
+            written[utt] = xv
     main_s = time.perf_counter() - t0
     routes = dict(TK.route_launches)
     launches = TK.launches
@@ -1890,7 +1926,7 @@ def phase_wave(tt, TE, CB, TK, kio, dev, seed, tag, tmp):
           f"as CM/CM2), largest error {worst:.3f} of the quantisation bound")
     if set(back) != set(mats) or worst > 1.0:
         fail("wave: compressed features came back beyond CM's step")
-    return routes, waves, (cfg, params, state), files
+    return routes, waves, (cfg, params, state), files, (out_ark, written)
 
 
 def phase_wave_timing(tt, TE, TK, dev, tag, waves, mdl, files):
@@ -2064,6 +2100,505 @@ def phase_wave_timing(tt, TE, TK, dev, tag, waves, mdl, files):
         f"{k} {v * 1e3:.4f}" for k, v in dec.items()) + f" [{tag}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the scoring back end at SRE16 evaluation size
+# ---------------------------------------------------------------------------
+
+# The NIST SRE16 evaluation's sizes: 802 enrolment models (1 or 3
+# segments), 9,294 test segments, ~1.99M trials, ~2% of them target; a
+# labelled PLDA training set of 4,000 speakers (>= 2,000, so the device EM
+# runs) and 2,272 unlabelled in-domain "major" segments.
+BE_DIM = 512                # the no_dropout x-vector width
+BE_TRAIN_SPK, BE_TRAIN_UTTS = 4000, 16
+BE_MAJORS = 2272
+BE_MODELS, BE_EVAL_SPK = 802, 201
+BE_TESTS = 9294
+BE_NONTARGETS = 210         # same-language nontarget models per test segment
+BE_LDA_DIM = 100            # score_sre16's default
+BE_EM_ITERS = 10
+# the planted two-covariance model: 64 speaker dimensions with
+# between/within ratios psi log-uniform in [0.15, 0.6] out of domain; in
+# domain the speaker part is scaled by 1.6 and everything shifted by 1.5
+# (tests/test_sre16_stage.py's mismatch)
+BE_SPK_DIMS, BE_PSI = 64, (0.15, 0.6)
+BE_SHIFT, BE_SCALE = 1.5, 1.6
+# bounds: tests/test_backend.py's (the EM 223-232, the scorer 172-180)
+EM_PSI_RTOL, EM_PSI_ATOL, EM_LLR_SPAN = 5e-3, 5e-4, 2e-2
+SCORE_SPAN = 1e-3
+PROJ_TOL = 2e-4
+EER_GAP = 5e-4
+# the back end's EER may exceed the planted model's Bayes (oracle) EER on
+# the same trials by this factor plus this margin: it estimates that model
+# from out-of-domain data through LDA and length-norm
+EER_ORACLE_FACTOR, EER_ORACLE_MARGIN = 2.0, 0.01
+PEAK_FP32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
+BE_WAVE_SPEAKERS = 8        # synthetic labels of the phase-11 x-vectors
+
+
+def planted_backend_data(BP, seed):
+    """Synthetic x-vectors from a planted two-covariance model at SRE16
+    evaluation size; returns the recipe's inputs and the in-domain oracle
+    (the planted model as a ``Plda`` on raw, unnormalised vectors)."""
+    rng = np.random.default_rng(seed + 120)
+    d, r = BE_DIM, BE_SPK_DIMS
+    q, _ = np.linalg.qr(rng.standard_normal((d, d)))
+    within = rng.uniform(0.5, 1.5, d)
+    psi = np.zeros(d)
+    psi[:r] = np.exp(rng.uniform(*np.log(BE_PSI), r))
+    between = psi * within
+    mu0 = 0.5 * rng.standard_normal(d)
+
+    def speakers(n, scale):
+        return rng.standard_normal((n, d)) * np.sqrt(between) * scale
+
+    def segments(y, offset):
+        z = y + rng.standard_normal(y.shape) * np.sqrt(within)
+        return (mu0 + offset + z @ q.T).astype(np.float32)
+
+    # labelled out-of-domain training set
+    y = speakers(BE_TRAIN_SPK, 1.0)
+    x = segments(np.repeat(y, BE_TRAIN_UTTS, axis=0), 0.0)
+    train_xv, train_u2s = {}, {}
+    for i, row in enumerate(x):
+        s = i // BE_TRAIN_UTTS
+        utt = f"train{s:04d}-{i % BE_TRAIN_UTTS:02d}"
+        train_xv[utt], train_u2s[utt] = row, f"train{s:04d}"
+    # unlabelled in-domain majors, two segments per speaker
+    y = speakers(BE_MAJORS // 2, BE_SCALE)
+    majors = {f"major{i:04d}": row for i, row in enumerate(
+        segments(np.repeat(y, 2, axis=0), BE_SHIFT))}
+    # evaluation speakers: 4 models each (2 for the last), half of them
+    # averaged from 3 segments; test segments round-robin over speakers
+    y = speakers(BE_EVAL_SPK, BE_SCALE)
+    model_spk = np.minimum(np.arange(BE_MODELS) // 4, BE_EVAL_SPK - 1)
+    n_segs = np.where(np.arange(BE_MODELS) % 2, 3, 1)
+    segs = segments(np.repeat(y[model_spk], n_segs, axis=0), BE_SHIFT)
+    starts = np.concatenate([[0], np.cumsum(n_segs)[:-1]])
+    model_keys = [f"model{i:03d}" for i in range(BE_MODELS)]
+    enroll = {k: segs[a:a + n].mean(0)
+              for k, a, n in zip(model_keys, starts, n_segs)}
+    num_utts = {k: int(n) for k, n in zip(model_keys, n_segs)}
+    test_spk = np.arange(BE_TESTS) % BE_EVAL_SPK
+    test_keys = [f"seg{j:04d}" for j in range(BE_TESTS)]
+    test = dict(zip(test_keys, segments(y[test_spk], BE_SHIFT)))
+    lang = np.array(["tgl", "yue"])[np.arange(BE_EVAL_SPK) % 2]
+    utt2cond = dict(zip(test_keys, lang[test_spk]))
+    # trials: every model of the segment's speaker (target) and 210 random
+    # nontarget models of its language
+    rows, cols = [], []
+    for li in range(2):
+        models = np.flatnonzero(model_spk % 2 == li)
+        tests = np.flatnonzero(test_spk % 2 == li)
+        keyr = rng.random((len(tests), len(models)))
+        own = model_spk[models][None, :] == test_spk[tests][:, None]
+        keyr[own] = np.inf
+        pick = np.sort(models[np.argsort(keyr, axis=1)[:, :BE_NONTARGETS]],
+                       axis=1)
+        tgt = [models[o] for o in own]
+        for j, nt, tg in zip(tests, pick, tgt):
+            m = np.sort(np.concatenate([tg, nt]))
+            rows.append(m)
+            cols.append(np.full(len(m), j))
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    order = np.lexsort((rows, cols))
+    rows, cols = rows[order].tolist(), cols[order].tolist()
+    trials = [(model_keys[m], test_keys[t], int(model_spk[m] == test_spk[t]))
+              for m, t in zip(rows, cols)]
+    oracle = BP.Plda(mean=mu0 + BE_SHIFT,
+                     transform=(q / np.sqrt(within)[None, :]).T,
+                     psi=psi * BE_SCALE ** 2)
+    return dict(train_xv=train_xv, train_u2s=train_u2s, majors=majors,
+                enroll=enroll, test=test, trials=trials, num_utts=num_utts,
+                utt2cond=utt2cond, oracle=oracle)
+
+
+@contextlib.contextmanager
+def recorded(targets):
+    """Wrap each ``(owner, attribute, label)`` callable for the duration:
+    per label, the seconds of every call and its (args, kwargs, result)."""
+    seconds, calls, saved = {}, {}, []
+    for owner, attr, label in targets:
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, fn))
+
+        def wrapped(*a, _fn=fn, _label=label, **k):
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            seconds.setdefault(_label, []).append(time.perf_counter() - t0)
+            calls.setdefault(_label, []).append((a, k, out))
+            return out
+        setattr(owner, attr, wrapped)
+    try:
+        yield seconds, calls
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def span_gap(got, want):
+    """(max |got - want|, the span of want)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max()), float(want.max() - want.min())
+
+
+def phase_backend(CB, TK, dev, seed, tag, tmp, wave):
+    """The scoring back end at SRE16 evaluation size: Recipe.score_sre16
+    (LDA, device EM, adaptation, both scorings, pooled and per-condition
+    metrics) as the main path, then score_trials_device over the grid and
+    the checks against the host's f64 back end, TF32, the planted model,
+    K1's x-vectors from phase 11 and the timings."""
+    from xvector_tpu_torch.backend import metrics as BM
+    from xvector_tpu_torch.backend import plda as BP
+    from xvector_tpu_torch.backend import plda_device as PD
+    from xvector_tpu_torch.cli import run as RUN
+    from xvector_tpu_torch.io import kaldi_ark as kio
+    from xvector_tpu_torch.io.datadir import DataDir
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    data = planted_backend_data(BP, seed)
+    trials = data["trials"]
+    n_tgt = sum(l for _, _, l in trials)
+    print(f"backend: planted data in {time.perf_counter() - t0:.2f} s: "
+          f"{len(data['train_xv'])} training x-vectors of {BE_TRAIN_SPK} "
+          f"speakers ({BE_DIM}-d), {len(data['majors'])} majors, "
+          f"{len(data['enroll'])} models ({sum(data['num_utts'].values())} "
+          f"segments), {len(data['test'])} test segments, {len(trials)} "
+          f"trials ({n_tgt} target, {n_tgt / len(trials):.2%}); "
+          f"{BE_SPK_DIMS} speaker dimensions, psi {BE_PSI} out of domain, "
+          f"in domain x{BE_SCALE} and shifted by {BE_SHIFT}")
+
+    # the main path: counts zeroed just before, read just after
+    recipe = RUN.Recipe(RUN.RecipeConfig(
+        work_dir=os.path.join(tmp, "backend"),
+        plda_em_iters=BE_EM_ITERS, device=str(dev)))
+    stages = [(BP, "train_lda", "LDA"), (RUN, "train_plda_device", "PLDA EM"),
+              (BP.Plda, "adapt", "adaptation"),
+              (BP.Plda, "score_trials", "scoring"),
+              (BM, "eer", "metrics"), (BM, "min_dcf", "metrics")]
+    zero_counts(CB, TK)
+    with recorded(stages) as (secs, calls):
+        t0 = time.perf_counter()
+        res = recipe.score_sre16(
+            data["train_xv"], DataDir(utt2spk=data["train_u2s"]),
+            data["majors"], data["enroll"], data["test"], trials,
+            num_utts=data["num_utts"], utt2cond=data["utt2cond"])
+        wall = time.perf_counter() - t0
+    launches = TK.launches + sum(CB.launches.values())
+    split = {k: sum(v) for k, v in secs.items()}
+    print(f"timing backend Recipe.score_sre16: {wall:.3f} s wall; LDA "
+          f"{split['LDA']:.3f} s, PLDA EM (device, first call) "
+          f"{split['PLDA EM']:.3f} s, adaptation {split['adaptation']:.3f} "
+          f"s, scoring out_of_domain {secs['scoring'][0]:.3f} s and "
+          f"adapted {secs['scoring'][1]:.3f} s (host f64), metrics "
+          f"{split['metrics']:.3f} s over {len(secs['metrics'])} calls, "
+          f"the rest (grouping, LDA projection and length-norm of each "
+          f"vector, lists) {wall - sum(split.values()):.3f} s [{tag}]")
+    print(f"backend: kernel launches over the main path {launches} (no "
+          f"kernel on this path: the back end is matrix products, inverses "
+          f"and host f64)")
+    [(em_args, em_kw, model)] = calls["PLDA EM"]
+    grouped = em_args[0]
+    if em_kw.get("device") != str(dev) or len(grouped) != BE_TRAIN_SPK:
+        fail(f"backend: the PLDA EM ran with {em_kw} on {len(grouped)} "
+             "speakers, not on the card")
+    lda = calls["LDA"][0][2]
+    adapted = calls["adaptation"][0][2]
+    (_, e_p, t_p, pairs), sc_kw, _ = calls["scoring"][0]
+    num_utts = sc_kw["num_utts"]
+    labels = np.array([l for _, _, l in trials])
+    for name in ("out_of_domain", "adapted"):
+        r = res[name]
+        print(f"backend {name}: EER {r['eer']:.6f}, minDCF(0.01) "
+              f"{r['min_dcf']:.6f} over {r['num_trials']} trials; "
+              + "; ".join(f"{c} EER {p['eer']:.6f} minDCF "
+                          f"{p['min_dcf']:.6f} ({p['num_trials']} trials)"
+                          for c, p in r["per_condition"].items()))
+
+    # 1. score_trials_device over the enroll x test grid, both models,
+    # against the recipe's own host f64 scores on the full trial list
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dev_scores, dev_s = {}, {}
+    for name, m in (("out_of_domain", model), ("adapted", adapted)):
+        t0 = time.perf_counter()
+        dev_scores[name] = PD.score_trials_device(m, e_p, t_p, pairs,
+                                                  num_utts, device=dev)
+        dev_s[name] = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    for name in dev_scores:
+        host = res[name]["scores"]
+        gap, span = span_gap(dev_scores[name], host)
+        e_dev = BM.eer(dev_scores[name], labels)
+        print(f"backend check score_trials_device vs host Plda.score_trials "
+              f"({name}, full trial list, {len(pairs)} trials, "
+              f"{len(e_p)}x{len(t_p)} grid gathered on the card): max_abs_err "
+              f"{gap:.3g}, span {span:.3g} (bound {SCORE_SPAN} x span = "
+              f"{SCORE_SPAN * span:.3g}); EER device {e_dev:.6f} vs host "
+              f"{res[name]['eer']:.6f}, |gap| "
+              f"{abs(e_dev - res[name]['eer']):.3g} (bound {EER_GAP}); "
+              f"minDCF device {BM.min_dcf(dev_scores[name], labels):.6f} vs "
+              f"host {res[name]['min_dcf']:.6f}")
+        if dev_scores[name].shape != host.shape \
+                or not np.isfinite(dev_scores[name]).all() \
+                or gap > SCORE_SPAN * span \
+                or abs(e_dev - res[name]["eer"]) > EER_GAP:
+            fail(f"backend: device scoring of {name} disagrees with the host")
+    e_keys = list(e_p)
+    e_mat = np.stack([e_p[k] for k in e_keys])
+    n_e = np.array([num_utts[k] for k in e_keys], np.float32)
+    t_mat = np.stack(list(t_p.values()))
+    proj = []
+    for label, v, kw, hkw in (
+            ("enroll, num_utts", e_mat, {"num_examples": n_e}, None),
+            ("test", t_mat, {}, {}),
+            ("test, simple_length_norm", t_mat,
+             {"simple_length_norm": True}, {"simple_length_norm": True})):
+        got = PD.project_device(model, v, device=dev, **kw).cpu().numpy()
+        if hkw is None:      # the host projects one count at a time
+            want = np.empty_like(got, dtype=np.float64)
+            for n in np.unique(n_e):
+                sel = n_e == n
+                want[sel] = model.project(v[sel], num_examples=int(n))
+        else:
+            want = model.project(v, **hkw)
+        err = float((np.abs(got - want) - PROJ_TOL * np.abs(want)).max())
+        proj.append(f"{label} max_abs_err {np.abs(got - want).max():.3g}")
+        if err > PROJ_TOL:
+            fail(f"backend: project_device ({label}) misses Plda.project")
+    print("backend check project_device vs Plda.project: " + "; ".join(proj)
+          + f" (bound rtol {PROJ_TOL}, atol {PROJ_TOL})")
+
+    # 2. the device EM against the host f64 EM on the same LDA'd,
+    # length-normalised training set
+    t0 = time.perf_counter()
+    host_model = BP.train_plda(grouped, num_em_iters=BE_EM_ITERS)
+    host_em_s = time.perf_counter() - t0
+    psi_d, psi_h = np.sort(model.psi), np.sort(host_model.psi)
+    psi_excess = float((np.abs(psi_d - psi_h)
+                        - (EM_PSI_ATOL + EM_PSI_RTOL * np.abs(psi_h))).max())
+    s_host_model = PD.score_trials_device(host_model, e_p, t_p, pairs,
+                                          num_utts, device=dev)
+    gap, span = span_gap(dev_scores["out_of_domain"], s_host_model)
+    print(f"backend check device EM vs host f64 EM ({BE_TRAIN_SPK} speakers, "
+          f"D={BE_LDA_DIM}, {BE_EM_ITERS} iterations): sorted psi max_abs_err "
+          f"{np.abs(psi_d - psi_h).max():.3g} (bound rtol {EM_PSI_RTOL}, "
+          f"atol {EM_PSI_ATOL}; excess {psi_excess:.3g}); LLRs over the "
+          f"full trial list max_abs_err {gap:.3g}, span {span:.3g} (bound "
+          f"{EM_LLR_SPAN} x span = {EM_LLR_SPAN * span:.3g})")
+    if psi_excess > 0 or gap > EM_LLR_SPAN * span:
+        fail("backend: the device EM disagrees with the host f64 EM")
+
+    # 3. TF32 allowed by the caller must not change a bit
+    t_dev = PD.project_device(model, t_mat, device=dev)
+    e_dev = PD.project_device(model, e_mat, num_examples=n_e, device=dev)
+    n_dev = torch.from_numpy(n_e).to(dev)
+    warm = PD.train_plda_device(grouped, num_em_iters=BE_EM_ITERS,
+                                device=dev)
+    s_off = PD.score_matrix(model, e_dev, t_dev, n_dev, device=dev)
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        on = PD.train_plda_device(grouped, num_em_iters=BE_EM_ITERS,
+                                  device=dev)
+        s_on = PD.score_matrix(model, e_dev, t_dev, n_dev, device=dev)
+        kept = (torch.backends.cuda.matmul.allow_tf32,
+                torch.get_float32_matmul_precision())
+        # the same product outside the guard, to show TF32 would move it
+        raw_on = PD._score_matrix(e_dev, t_dev, torch.from_numpy(
+            model.psi.astype(np.float32)).to(dev), n_dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before[0]
+        torch.set_float32_matmul_precision(before[1])
+    raw_off = PD._score_matrix(e_dev, t_dev, torch.from_numpy(
+        model.psi.astype(np.float32)).to(dev), n_dev)
+    same_em = all(np.array_equal(getattr(on, f), getattr(warm, f))
+                  for f in ("mean", "transform", "psi"))
+    same_s = torch.equal(s_on, s_off)
+    unguarded = float((raw_on - raw_off).abs().max())
+    print(f"backend check TF32 allowed by the caller (allow_tf32=True, "
+          f"float32 matmul precision 'high'): device EM identical "
+          f"{same_em}, score matrix identical {same_s}; the caller's "
+          f"setting after each call {kept}; the unguarded score matrix "
+          f"moves by {unguarded:.3g} under TF32")
+    if not (same_em and same_s) or kept != (True, "high"):
+        fail("backend: TF32 allowed by the caller changed the back end's "
+             "numbers or was not restored")
+
+    # 4. the protocol on the planted data: the oracle's EER on these trials
+    oracle = data["oracle"]
+    ue = (np.stack([data["enroll"][k] for k in e_keys]) - oracle.mean) \
+        @ oracle.transform.T
+    ut = (np.stack(list(data["test"].values())) - oracle.mean) \
+        @ oracle.transform.T
+    s_or = PD.score_matrix(oracle, ue, ut, n_e, device=dev)
+    e_idx = {k: i for i, k in enumerate(e_keys)}
+    t_idx = {k: i for i, k in enumerate(data["test"])}
+    rows = torch.tensor([e_idx[a] for a, _ in pairs], device=dev)
+    cols = torch.tensor([t_idx[b] for _, b in pairs], device=dev)
+    oracle_eer = BM.eer(s_or[rows, cols].cpu().numpy(), labels)
+    eer_bound = EER_ORACLE_FACTOR * oracle_eer + EER_ORACLE_MARGIN
+    diff = float(np.abs(res["adapted"]["scores"]
+                        - res["out_of_domain"]["scores"]).max())
+    conds = {n: sorted(res[n]["per_condition"]) for n in res}
+    print(f"backend check protocol: planted-model (oracle) EER "
+          f"{oracle_eer:.6f}, bound {EER_ORACLE_FACTOR} x oracle + "
+          f"{EER_ORACLE_MARGIN} = {eer_bound:.6f}; out_of_domain EER "
+          f"{res['out_of_domain']['eer']:.6f}, adapted EER "
+          f"{res['adapted']['eer']:.6f}; adapted vs out_of_domain scores "
+          f"differ by up to {diff:.3g}; conditions {conds}")
+    if max(res[n]["eer"] for n in res) > eer_bound or diff <= 1e-3 \
+            or any(c != ["tgl", "yue"] for c in conds.values()):
+        fail("backend: the protocol misses on the planted data")
+
+    # 5. composition through K1: phase 11's wave x-vectors, read in bulk
+    ark, written = wave
+    keys, mat = kio.read_vec_flt_matrix(ark, dim_hint=BE_DIM)
+    same_rows = keys == list(written) and all(
+        np.array_equal(mat[i], written[k]) for i, k in enumerate(keys))
+    mean = BP.global_mean(data["majors"].values())
+
+    def prep(v):
+        return BP.length_normalize((np.asarray(v, np.float64) - mean)
+                                   @ lda.transform.T)
+    w_enroll = {f"wspk{s}": prep(mat[s]) for s in range(BE_WAVE_SPEAKERS)}
+    w_test = {k: prep(mat[i]) for i, k in enumerate(keys)
+              if i >= BE_WAVE_SPEAKERS}
+    w_pairs = [(e, t) for e in w_enroll for t in w_test]
+    w_dev = PD.score_trials_device(adapted, w_enroll, w_test, w_pairs,
+                                   device=dev)
+    w_host = adapted.score_trials(w_enroll, w_test, w_pairs)
+    gap, span = span_gap(w_dev, w_host)
+    print(f"backend check phase-11 x-vectors (K1): read_vec_flt_matrix "
+          f"{mat.shape} rows identical to those written {same_rows}; "
+          f"{BE_WAVE_SPEAKERS} synthetic speakers, {len(w_pairs)} trials "
+          f"scored with the adapted PLDA: device vs host max_abs_err "
+          f"{gap:.3g}, span {span:.3g} (bound {SCORE_SPAN} x span)")
+    if not same_rows or mat.shape[1] != BE_DIM or gap > SCORE_SPAN * span:
+        fail("backend: the wave x-vectors do not round-trip or score alike")
+
+    # timings
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    t0 = time.perf_counter()
+    PD.train_plda_device(grouped, num_em_iters=BE_EM_ITERS, device=dev)
+    ev1.record()
+    torch.cuda.synchronize()
+    em_host = time.perf_counter() - t0
+    em_ev = ev0.elapsed_time(ev1)
+    t0 = time.perf_counter()
+    PD._em_stats(grouped)
+    stats_s = time.perf_counter() - t0
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        PD.train_plda_device(grouped, num_em_iters=BE_EM_ITERS, device=dev)
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
+    print(f"timing backend train_plda_device ({BE_TRAIN_SPK} speakers x "
+          f"{BE_TRAIN_UTTS}, D={BE_LDA_DIM}, {BE_EM_ITERS} iterations): "
+          f"first call {secs['PLDA EM'][0] * 1e3:.1f} ms host-inclusive "
+          f"(inside the recipe, libraries loaded on first use); warm call "
+          f"{em_ev:.1f} ms by CUDA events, {em_host * 1e3:.1f} ms "
+          f"host-inclusive (host f64 statistics {stats_s * 1e3:.1f} ms); "
+          f"device busy {busy / 1e3:.2f} ms under the profiler; host f64 "
+          f"train_plda {host_em_s * 1e3:.1f} ms [{tag}]")
+    m, p = e_dev.shape[0], t_dev.shape[0]
+    sm_ms = cuda_ms(lambda: PD.score_matrix(model, e_dev, t_dev, n_dev,
+                                            device=dev))
+    psi_dev = torch.from_numpy(model.psi.astype(np.float32)).to(dev)
+    with PD._full_f32():
+        core_ms = cuda_ms(lambda: PD._score_matrix(e_dev, t_dev, psi_dev,
+                                                   n_dev))
+    flops = 2 * 2 * m * p * BE_LDA_DIM
+    nbytes = 4 * (m * p + (m + p) * BE_LDA_DIM + m)
+    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+    by = "operations" if flops / PEAK_FP32_FLOPS > nbytes / PEAK_BYTES_PER_S \
+        else "bytes"
+    print(f"timing backend score_matrix {m}x{p}, D={BE_LDA_DIM}: "
+          f"{sm_ms:.4f} ms per call by CUDA events ({core_ms:.4f} ms for "
+          f"the products and elementwise passes alone), bound "
+          f"{bound_ms:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP at FP32 "
+          f"{PEAK_FP32_FLOPS / 1e12:g} TFLOP/s, {nbytes / 1e6:.1f} MB at "
+          f"{PEAK_BYTES_PER_S / 1e12:g} TB/s) = {bound_ms / core_ms:.1%} "
+          f"of bound [{tag}]")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            PD.score_matrix(model, e_dev, t_dev, n_dev, device=dev)
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
+            kernels[e.name] = kernels.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 5
+    print(f"profile backend score_matrix (us per call, device busy "
+          f"{sum(kernels.values()):.1f}): " + "; ".join(
+              f"{n[:50]} {us:.1f}" for n, us in sorted(
+                  kernels.items(), key=lambda kv: -kv[1])[:8]) + f" [{tag}]")
+    host_s = secs["scoring"]
+    print(f"timing backend trials/s over {len(pairs)} trials: "
+          f"score_trials_device {len(pairs) / dev_s['out_of_domain']:.0f} "
+          f"and {len(pairs) / dev_s['adapted']:.0f} (host-inclusive: "
+          f"projection, upload, matrix, gather, copy back; peak device "
+          f"memory {peak_mb:.0f} MB); host f64 Plda.score_trials "
+          f"{len(pairs) / host_s[0]:.0f} and {len(pairs) / host_s[1]:.0f} "
+          f"[{tag}]")
+    t0 = time.perf_counter()
+    BM.eer(dev_scores["adapted"], labels)
+    BM.min_dcf(dev_scores["adapted"], labels)
+    print(f"timing backend eer + min_dcf over {len(pairs)} scores: "
+          f"{time.perf_counter() - t0:.3f} s [{tag}]")
+    print(f"backend: phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_reference_h5(TR, kio, dev, tag, tmp, cli_paths):
+    """--reference-h5 on phase 9's model: export_reference_h5 of
+    model_final, then cli.extract_embedding --reference-h5, whose rows
+    must equal the --model-dir run's.  Skipped, with one line, where h5py
+    is not installed (a host file format, not a device path)."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        print("reference-h5: the h5 export is skipped because h5py is not "
+              "installed")
+        return
+    from xvector_tpu_torch.cli import extract_embedding
+    from xvector_tpu_torch.train import checkpoints
+    from xvector_tpu_torch.utils.export import export_reference_h5
+
+    work, feats_ark, model_dir_ark = cli_paths
+    tr = TR.Trainer(TR.TrainConfig(model="no_dropout",
+                                   num_targets=TRAIN_CLASSES),
+                    os.path.join(tmp, "h5_probe"), device=dev)
+    checkpoints.restore_into(tr, os.path.realpath(
+        os.path.join(work, "model_final")))
+    h5 = os.path.join(tmp, "model.h5")
+    export_reference_h5(h5, tr.model_cfg, tr.params, tr.state)
+    out_ark = os.path.join(tmp, "h5_xvector.ark")
+    out, secs = run_cli(extract_embedding, [
+        f"--reference-h5={h5}", "--model=ModelWithoutDropout",
+        f"--num-targets={TRAIN_CLASSES}",
+        f"--feats-rspecifier=ark:{feats_ark}",
+        f"--output-ark={out_ark}", f"--device={dev}"])
+    got = dict(kio.read_vec_flt_scp(out_ark.replace(".ark", ".scp")))
+    want = dict(kio.read_vec_flt_scp(model_dir_ark.replace(".ark", ".scp")))
+    same = set(got) == set(want) and all(np.array_equal(got[k], want[k])
+                                         for k in want)
+    print(f"reference-h5: {os.path.getsize(h5) / 1e6:.1f} MB model.h5; "
+          f"extract_embedding --reference-h5: {out[-1]} in {secs:.3f} s; "
+          f"rows identical to the --model-dir run's: {same} "
+          f"({len(want)} rows) [{tag}]")
+    if not same:
+        fail("reference-h5: the --reference-h5 rows differ from the "
+             "--model-dir rows")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2084,6 +2619,7 @@ def main(argv=None) -> int:
     from xvector_tpu_torch.train import schedules
     from xvector_tpu_torch.train import trainer as TR
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
@@ -2122,17 +2658,24 @@ def main(argv=None) -> int:
     # 9. the train -> checkpoint -> extract lifecycle through the CLIs,
     # then 10. the attention and AM-softmax presets
     with tempfile.TemporaryDirectory() as tmp:
-        cli_routes, cli_k1 = phase_cli(TR, TA, CB, TK, kio, dev, args.seed,
-                                       tag, tmp)
+        cli_routes, cli_k1, cli_paths = phase_cli(TR, TA, CB, TK, kio, dev,
+                                                  args.seed, tag, tmp)
+        phase_reference_h5(TR, kio, dev, tag, tmp, cli_paths)
         phase_presets(TR, CB, TK, TE, dev, args.seed, tag, tmp)
     conv = phase_conv_timing(CB, dev, args.seed, tag)
 
     # 11. the wave front end: wav.scp -> WaveExtractor (K1) -> ark, its
     # checks, then its timings
     with tempfile.TemporaryDirectory() as tmp:
-        wave_routes, waves, mdl, files = phase_wave(
+        wave_routes, waves, mdl, files, wave_ark = phase_wave(
             tt, TE, CB, TK, kio, dev, args.seed, tag, tmp)
         phase_wave_timing(tt, TE, TK, dev, tag, waves, mdl, files)
+
+        # 12. the scoring back end at SRE16 evaluation size, scoring also
+        # phase 11's x-vectors
+        phase_backend(CB, TK, dev, args.seed, tag, tmp, wave_ark)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the device "
+          f"check to here")
 
     # K1: the main path runs layer 0 on v4 and layers 1-4 on v5; "ms" is the
     # layer kernels' own time per stack call (profiler), without the

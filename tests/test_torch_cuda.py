@@ -17,7 +17,9 @@ accumulate in f32; a different summation order can flip the bf16 rounding
 of an output or an intermediate, nothing more); 1e-3 for K3's f32 output,
 where only the order of the f32 sums differs.  The wave front end on the
 card is held to the CPU at the CPU suite's bounds (features rtol 1e-4,
-atol 2e-3; golden fixtures rtol 2e-4, atol 1e-3; augmentation 1e-4)."""
+atol 2e-3; golden fixtures rtol 2e-4, atol 1e-3; augmentation 1e-4).  The
+PLDA back end on the card is held to the CPU and the host f64 back end at
+``tests/test_backend.py``'s bounds, with TF32 off and on."""
 
 import os
 
@@ -545,3 +547,72 @@ def test_train_stop_check_resume_is_bit_identical_on_card(cuda_device,
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(_all_tensors(resumed),
                                                  _all_tensors(ref)))
+
+
+def _plda_workload(seed=0, n_spk=400, dim=40):
+    """Speakers with 2..8 utterances (the unique-count grouping), a trial
+    grid with 1- and 3-utterance enrolment models."""
+    rng = np.random.RandomState(seed)
+    spk = {f"s{s}": rng.randn(dim) * 1.5 + rng.randn(2 + s % 7, dim)
+           for s in range(n_spk)}
+    enroll = {f"e{i}": rng.randn(dim) * 1.5 for i in range(30)}
+    test = {f"t{j}": rng.randn(dim) * 1.5 for j in range(70)}
+    trials = [(e, t) for t in test for e in enroll]
+    num_utts = {e: 1 + 2 * (i % 2) for i, e in enumerate(enroll)}
+    return spk, enroll, test, trials, num_utts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tf32", [False, True])
+def test_plda_device_on_card_matches_cpu_and_host(cuda_device, tf32):
+    """The device EM and scorer on the card against the same functions on
+    the CPU and the host f64 back end, at tests/test_backend.py's bounds
+    (EM: sorted psi rtol 5e-3, atol 5e-4, LLRs 2e-2 x span; scoring 1e-3 x
+    span; projection 2e-4).  With TF32 allowed by the caller, the card's
+    numbers equal the TF32-off run bit for bit and the caller's setting
+    survives each call."""
+    from xvector_tpu_torch.backend import plda as BP
+    from xvector_tpu_torch.backend import plda_device as PD
+    spk, enroll, test, trials, num_utts = _plda_workload()
+    card = PD.train_plda_device(spk, device=cuda_device)
+    scores = PD.score_trials_device(card, enroll, test, trials, num_utts,
+                                    device=cuda_device)
+    if tf32:
+        before = (torch.backends.cuda.matmul.allow_tf32,
+                  torch.get_float32_matmul_precision())
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        try:
+            on = PD.train_plda_device(spk, device=cuda_device)
+            assert torch.backends.cuda.matmul.allow_tf32
+            on_scores = PD.score_trials_device(on, enroll, test, trials,
+                                               num_utts, device=cuda_device)
+            assert torch.get_float32_matmul_precision() == "high"
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = before[0]
+            torch.set_float32_matmul_precision(before[1])
+        for f in ("mean", "transform", "psi"):
+            np.testing.assert_array_equal(getattr(on, f), getattr(card, f))
+        np.testing.assert_array_equal(on_scores, scores)
+    cpu = PD.train_plda_device(spk, device="cpu")
+    host = BP.train_plda(spk)
+    for other in (cpu, host):
+        np.testing.assert_allclose(np.sort(card.psi), np.sort(other.psi),
+                                   rtol=5e-3, atol=5e-4)
+    want = host.score_trials(enroll, test, trials, num_utts)
+    span = want.max() - want.min()
+    np.testing.assert_allclose(card.score_trials(enroll, test, trials,
+                                                 num_utts), want,
+                               atol=2e-2 * span)
+    card_on_host = PD.score_trials_device(host, enroll, test, trials,
+                                          num_utts, device=cuda_device)
+    np.testing.assert_allclose(card_on_host, want, atol=1e-3 * span)
+    np.testing.assert_allclose(
+        card_on_host, PD.score_trials_device(host, enroll, test, trials,
+                                             num_utts, device="cpu"),
+        atol=1e-3 * span)
+    v = np.stack(list(test.values()))
+    for kw in ({}, {"simple_length_norm": True}):
+        np.testing.assert_allclose(
+            PD.project_device(host, v, device=cuda_device, **kw).cpu(),
+            host.project(v, **kw), rtol=2e-4, atol=2e-4)

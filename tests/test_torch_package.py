@@ -14,7 +14,10 @@ import pytest
 import torch
 
 from xvector_tpu.models import tdnn as jt
+from xvector_tpu_torch.backend import plda as BP
+from xvector_tpu_torch.backend import plda_device as PD
 from xvector_tpu_torch.cli import extract_embedding
+from xvector_tpu_torch.cli import run as RUN
 from xvector_tpu_torch.extract import extractor as TE
 from xvector_tpu_torch.models import tdnn as tt
 from xvector_tpu_torch.models.convert import (params_from_numpy,
@@ -23,6 +26,7 @@ from xvector_tpu_torch.ops import augment as AUG
 from xvector_tpu_torch.ops import conv_bwd as CB
 from xvector_tpu_torch.train import checkpoints as C
 from xvector_tpu_torch.train import trainer as TR
+from xvector_tpu_torch.utils import export as EX
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "xvector_tpu_torch"
@@ -74,7 +78,11 @@ def test_no_jax_import_in_source(path):
                                    "extractor", "preprocess", "Trainer",
                                    "conv1d_same_fused_bwd", "WaveExtractor",
                                    "make_wave_to_xvector",
-                                   "augment_utterance", "cli_wav"])
+                                   "augment_utterance", "cli_wav",
+                                   "project_device", "score_matrix",
+                                   "score_trials_device",
+                                   "train_plda_device", "Recipe",
+                                   "import_reference_h5", "cli_h5"])
 def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
     cfg = tt.MODEL_ZOO["tiny"]
     tp, ts = tt.init_params(torch.Generator().manual_seed(0), cfg, 3,
@@ -84,6 +92,8 @@ def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
                                                    num_targets=3),
                                     str(tmp_path / "exp"), device="cpu"), 0)
         (tmp_path / "wav.scp").write_text("")
+    plda = BP.Plda(np.zeros(4), np.eye(4), np.ones(4))
+    spk = {f"s{i}": np.eye(4)[:2] + i for i in range(3)}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
         "init_params": lambda: tt.init_params(torch.Generator(), cfg, 3),
@@ -106,6 +116,19 @@ def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
         "cli_wav": lambda: extract_embedding.main([
             f"--model-dir={tmp_path / 'exp'}", "--model=tiny",
             "--num-targets=3", f"--wav-rspecifier=scp:{tmp_path}/wav.scp",
+            f"--output-ark={tmp_path / 'xv.ark'}"]),
+        "project_device": lambda: PD.project_device(plda, np.ones((2, 4))),
+        "score_matrix": lambda: PD.score_matrix(plda, np.ones((2, 4)),
+                                                np.ones((3, 4))),
+        "score_trials_device": lambda: PD.score_trials_device(
+            plda, {"e": np.ones(4)}, {"t": np.ones(4)}, [("e", "t")]),
+        "train_plda_device": lambda: PD.train_plda_device(spk),
+        "Recipe": lambda: RUN.Recipe(RUN.RecipeConfig(str(tmp_path / "r"))),
+        "import_reference_h5": lambda: EX.import_reference_h5(
+            str(tmp_path / "model.h5"), cfg, 3),
+        "cli_h5": lambda: extract_embedding.main([
+            f"--reference-h5={tmp_path / 'model.h5'}", "--model=tiny",
+            "--num-targets=3", f"--feats-rspecifier=ark:{tmp_path}/f.ark",
             f"--output-ark={tmp_path / 'xv.ark'}"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):

@@ -20,6 +20,10 @@ bf16, stats-pooling topologies run their frame stack through the fused
 kernel (``ops/tdnn_kernel``); attention pooling and f32 extraction take
 the unfused path.  ``--device`` (default ``cuda``) picks the device.
 
+Instead of ``--model-dir``, ``--reference-h5`` takes a ``model.h5``
+exported by the reference's TF1 trainer (``--model`` takes the TF1 class
+name or a preset); it needs ``h5py``.
+
     python -m xvector_tpu_torch.cli.extract_embedding --model-dir=EXP \\
         --model=no_dropout --num-targets=7185 \\
         --wav-rspecifier=scp:wav.scp --output-ark=xvector.ark
@@ -30,6 +34,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import tempfile
 
 from ..extract.extractor import (ExtractorConfig, WaveExtractor,
                                  WaveExtractorConfig, XvectorExtractor,
@@ -39,6 +44,7 @@ from ..models import tdnn
 from ..ops import tdnn_kernel
 from ..train import checkpoints
 from ..train.trainer import TrainConfig, Trainer
+from ..utils.export import import_reference_h5
 
 
 def get_args(argv=None):
@@ -46,8 +52,10 @@ def get_args(argv=None):
     p.add_argument("--model-dir", default="",
                    help="trainer work dir (uses model_final)")
     p.add_argument("--reference-h5", default="",
-                   help="a model.h5 exported by the reference trainer; not "
-                        "ported yet (ROADMAP A5, h5 export)")
+                   help="instead of --model-dir: a model.h5 exported by "
+                        "the reference trainer (models.py:180-214), so a "
+                        "trained TF1 model migrates without retraining; "
+                        "needs h5py")
     p.add_argument("--model", default="ModelWithoutDropout")
     p.add_argument("--num-targets", type=int, required=True)
     p.add_argument("--feats-rspecifier", default="",
@@ -87,31 +95,38 @@ def main(argv=None):
     if os.path.exists(scp + ".done"):
         print(f"{scp} already complete; skipping (idempotent restart)")
         return
-    if args.reference_h5:
-        sys.exit("--reference-h5 is not ported yet: reading the reference's "
-                 "model.h5 waits for the h5 export of ROADMAP A5")
-    if not args.model_dir:
-        sys.exit("pass --model-dir")
+    if bool(args.model_dir) == bool(args.reference_h5):
+        sys.exit("pass exactly one of --model-dir/--reference-h5")
     if bool(args.feats_rspecifier) == bool(args.wav_rspecifier):
         sys.exit("pass exactly one of --feats-rspecifier/--wav-rspecifier")
     preset = tdnn.REFERENCE_CLASS_TO_PRESET.get(args.model, args.model)
     if preset not in tdnn.MODEL_ZOO:
         sys.exit(f"unknown model {args.model!r}")
-    final = os.path.join(args.model_dir, "model_final")
-    if not os.path.exists(final) \
-            and checkpoints.latest_complete(args.model_dir) is None:
-        sys.exit(f"no checkpoint under {args.model_dir}")
-
     cfg = TrainConfig(model=preset, num_targets=args.num_targets,
                       compute_dtype="bfloat16")
-    trainer = Trainer(cfg, args.model_dir, feat_dim=args.feat_dim,
-                      device=args.device)
-    if os.path.exists(final):
-        checkpoints.restore_into(trainer, os.path.realpath(final))
+    if args.reference_h5:
+        # a scratch work dir (no checkpoint is read or written); it rides
+        # on the trainer, so it is removed with it instead of leaking
+        tmp = tempfile.TemporaryDirectory(prefix="xv_ref_h5_")
+        trainer = Trainer(cfg, tmp.name, feat_dim=args.feat_dim,
+                          device=args.device)
+        trainer._scratch_dir = tmp
+        trainer.set_params(*import_reference_h5(
+            args.reference_h5, trainer.model_cfg, args.num_targets,
+            device=trainer.device))
     else:
-        # model_0 (the initial-parameters save) counts: a run that crashed
-        # in iteration 0 still extracts
-        checkpoints.restore_latest(trainer)
+        final = os.path.join(args.model_dir, "model_final")
+        if not os.path.exists(final) \
+                and checkpoints.latest_complete(args.model_dir) is None:
+            sys.exit(f"no checkpoint under {args.model_dir}")
+        trainer = Trainer(cfg, args.model_dir, feat_dim=args.feat_dim,
+                          device=args.device)
+        if os.path.exists(final):
+            checkpoints.restore_into(trainer, os.path.realpath(final))
+        else:
+            # model_0 (the initial-parameters save) counts: a run that
+            # crashed in iteration 0 still extracts
+            checkpoints.restore_latest(trainer)
 
     common = dict(min_chunk=args.min_chunk_size, max_chunk=args.chunk_size,
                   batch_size=args.batch_size,

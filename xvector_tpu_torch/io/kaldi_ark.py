@@ -3,7 +3,8 @@
 Own copy of what extraction needs from ``xvector_tpu/io/kaldi_ark.py``
 (the port imports nothing of that package): rspecifier parsing with pipe
 support, float matrices (including compressed CM/CM2/CM3 reads and the
-CM/CM2 writer), float vectors, and the ark+scp writer.  The native libxta
+CM/CM2 writer), float vectors (one by one, or in bulk as an (N, dim)
+matrix for the back end), and the ark+scp writer.  The native libxta
 readers are not ported yet.
 
 Format notes
@@ -33,7 +34,8 @@ import numpy as np
 
 __all__ = ["open_or_fd", "read_mat", "read_mat_ark", "read_mat_scp",
            "write_mat", "read_vec_flt", "read_vec_flt_ark",
-           "read_vec_flt_scp", "write_vec_flt", "ArkWriter"]
+           "read_vec_flt_scp", "read_vec_flt_ark_fast",
+           "read_vec_flt_matrix", "write_vec_flt", "ArkWriter"]
 
 
 # ---------------------------------------------------------------------------
@@ -437,6 +439,29 @@ def read_vec_flt_scp(file_or_fd) -> Iterator[Tuple[str, np.ndarray]]:
             yield key, read_vec_flt(rxfile)
     finally:
         _maybe_close(fd, file_or_fd)
+
+
+def read_vec_flt_ark_fast(rxspec) -> Iterator[Tuple[str, np.ndarray]]:
+    """The JAX package's ``read_vec_flt_ark_fast``, Python path only: the
+    port has no native libxta reader yet, so this is
+    :func:`read_vec_flt_ark` (same keys and float32 vectors)."""
+    yield from read_vec_flt_ark(rxspec)
+
+
+def read_vec_flt_matrix(rxspec, dim_hint: int = 512):
+    """Slurp an ark of same-dim float vectors as ``(keys, (N, dim)
+    float32)``, the natural shape for the PLDA back end.  ``rxspec`` is
+    an rspecifier as :func:`open_or_fd` takes it (``ark:`` options, a
+    ``cmd |`` pipe, a path, an open file).  An empty ark gives
+    ``([], (0, dim_hint))``.  Python path only: the JAX package's native
+    bulk reader (libxta) is not ported, so this reads entry by entry."""
+    keys, rows = [], []
+    for key, vec in read_vec_flt_ark(rxspec):
+        keys.append(key)
+        rows.append(vec)
+    if not rows:
+        return [], np.empty((0, dim_hint), np.float32)
+    return keys, np.stack(rows).astype(np.float32)
 
 
 # ---------------------------------------------------------------------------
