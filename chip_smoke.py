@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's extraction, training, wave and scoring paths
-on one GPU.
+"""Drive the PyTorch port's extraction, training, wave, scoring and
+recipe paths on one GPU.
 
 Run from the repository root (one card, no arguments needed):
 
@@ -10,8 +10,10 @@ Phases; any failure raises and the exit code is non-zero:
 
 1. device check: CUDA must be available; prints the card's name and power
    limit as ``nvidia-smi`` reports them;
-2. build: compiles every CUDA source of the port (``ops/_build.py``) and
-   prints the seconds and the compiler's register/spill report;
+2. build: compiles every CUDA source of the port (``ops/_build.py``) and,
+   beside them, the host data plane libxta (``runtime/native.py``,
+   ``g++``), and prints the seconds and the compiler's register/spill
+   report;
 3. K1 against its plain version on the card: the full-width ``no_dropout``
    stack at 32x1024 and at a ragged 32x777 with padded tails, and small
    batches of the ``prelu``, ``l2_lrelu``, ``tdnn_dilated`` and ``etdnn``
@@ -134,13 +136,40 @@ Phases; any failure raises and the exit code is non-zero:
    (first and warm call, CUDA events and host-inclusive, device busy)
    beside the host f64 EM, ``score_matrix`` against its bound and its
    profile, trials/s of ``score_trials_device`` and of the host scorer,
-   ``eer`` + ``min_dcf``, and ``score_sre16``'s wall time by stage.
+   ``eer`` + ``min_dcf``, and ``score_sre16``'s wall time by stage;
+13. the recipe (``cli/run.py``) at full ``no_dropout`` width on a
+   synthetic corpus from ``--seed``: 48 speakers x 8 utterances of 4-12 s
+   of 8 kHz speech-like audio (phase 11's generator through three
+   resonances of the speaker's own), with reverb and noise copies made by
+   ``Recipe.augment`` on the card from 4 synthetic RIRs and 4 noises.
+   ``Recipe(RecipeConfig(..., device="cuda"))`` runs stage by stage, each
+   stage a main path with the counts zeroed just before it and read just
+   after: ``make_features`` (MFCC and VAD on the card, dither on; its data
+   dir saved and read back, as run.sh hands stages over), ``make_egs`` (200-400
+   frames, minibatch 64, bucket 32, snapping, 4 archives of ~40
+   minibatches, valid and train-subset archives; every archive must come
+   from libxta's ``materialize_archive_native``, and
+   ``iter_plan_minibatches`` must yield archive 0's minibatches byte for
+   byte), ``train`` (bf16, blocks of 16, 2 epochs: 6 K2/K3/K4 calls per
+   minibatch step, all "sm90", and a falling loss), ``extract`` (bf16,
+   K1: v4 on layer 0, v5 on layers 1-4) and ``extract_from_wav`` (the
+   ``WaveExtractor``, K1 likewise), and ``score`` (enrolment on half of
+   each speaker's clean utterances, test on the rest; EER at most 0.25
+   for both x-vector sets).  Then ``cli.run --synthetic-speakers ...
+   --model no_dropout --extract-from-wav`` and its ``--stage 3`` rerun
+   (features and egs reused, the model retrained), and ``cli.get_egs`` on
+   stage 1's data dir, whose archives must equal ``make_egs``'s byte for
+   byte.  Timing lines: seconds per stage, the feature stage's
+   audio-s/s, native against Python materialisation of archive 0
+   (minibatches/s, MB/s), the training stage's ms per minibatch, the
+   extraction stages' x-vectors/s.
 
 The line before the last is ``{"kernels": [...]}`` (K1 and K2-K4 in the
 main path's designs, and rows for the "sm80" designs with their main-path
 launch counts, each with its launches over the CLI phase as
-``cli_launches``, and K1's over the wave phase as ``wave_launches``); the
-last line is
+``cli_launches`` and over the recipe's stages (training for K2-K4, both
+extraction stages for K1) as ``recipe_launches``, and K1's over the wave
+phase as ``wave_launches``); the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full f32
 (``torch.backends.cuda.matmul.allow_tf32 = False``) so the plain versions
 are true f32 referees.
@@ -149,6 +178,7 @@ are true f32 referees.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -2599,6 +2629,384 @@ def phase_reference_h5(TR, kio, dev, tag, tmp, cli_paths):
              "--model-dir rows")
 
 
+RECIPE_SPEAKERS = 48         # synthetic speakers of phase 13's corpus
+RECIPE_UTTS = 8              # utterances per speaker (half enrol, half test)
+RECIPE_SECONDS = (4.0, 12.0)  # utterance lengths, uniform
+RECIPE_RIRS = 4              # synthetic room impulse responses
+RECIPE_NOISES = 4            # synthetic noise signals
+RECIPE_ARCHIVES = 4
+# frames planned per archive: ~40 minibatches of 64 x 200-400 frames (the
+# recipe's other allocator settings are AllocatorConfig's defaults)
+RECIPE_FRAMES_PER_ITER = 40 * 64 * 300
+RECIPE_EPOCHS = 2
+RECIPE_EER_BOUND = 0.25      # far below chance (0.5)
+RECIPE_CLI_SPEAKERS = 16     # cli.run --synthetic-speakers
+RECIPE_CLI_UTTS = 6
+
+
+def recipe_corpus(seed):
+    """RECIPE_SPEAKERS x RECIPE_UTTS utterances of 8 kHz speech-like audio
+    from ``seed``: phase 11's bursts and gaps, shaped by three resonances
+    of the speaker's own (poles at radius 0.97, 250-3600 Hz), so that
+    speakers can be told apart; each utterance keeps its own random
+    spectral tilt."""
+    from scipy.signal import lfilter
+    rng = np.random.RandomState(seed + 130)
+    waves, utt2spk = {}, {}
+    for s in range(RECIPE_SPEAKERS):
+        a = np.array([1.0])
+        for f in rng.uniform(250, 3600, size=3):
+            a = np.convolve(a, [1.0, -2 * 0.97 * math.cos(
+                2 * math.pi * f / WAVE_SR), 0.97 ** 2])
+        for u in range(RECIPE_UTTS):
+            x = speechlike(rng, int(WAVE_SR * rng.uniform(*RECIPE_SECONDS)))
+            y = lfilter([1.0], a, x.astype(np.float64))
+            y *= x.std() / max(y.std(), 1e-9)
+            utt = f"spk{s:02d}_u{u}"
+            waves[utt] = np.clip(np.rint(y), -32768, 32767).astype(
+                np.float32)
+            utt2spk[utt] = f"spk{s:02d}"
+    return waves, utt2spk
+
+
+def recipe_rirs_noises(seed):
+    """RECIPE_RIRS exponentially decaying noise bursts (0.1-0.4 s, a unit
+    direct path) and RECIPE_NOISES coloured noises (3-6 s), from seed."""
+    from scipy.signal import lfilter
+    rng = np.random.RandomState(seed + 131)
+    rirs = []
+    for _ in range(RECIPE_RIRS):
+        t = np.arange(int(WAVE_SR * rng.uniform(0.1, 0.4))) / WAVE_SR
+        h = 0.3 * rng.randn(len(t)) * np.exp(-t / rng.uniform(0.03, 0.1))
+        h[0] = 1.0
+        rirs.append(h.astype(np.float32))
+    noises = [(1000 * lfilter([1.0], [1.0, -rng.uniform(0.0, 0.95)],
+                              rng.randn(int(WAVE_SR * rng.uniform(3, 6)))))
+              .astype(np.float32) for _ in range(RECIPE_NOISES)]
+    return rirs, noises
+
+
+def file_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def same_archives(a, b, names):
+    """The names whose files differ between directories a and b."""
+    return [n for n in names if file_bytes(os.path.join(a, n))
+            != file_bytes(os.path.join(b, n))]
+
+
+def phase_recipe(CB, TK, TA, kio, dev, seed, tag, tmp):
+    """The recipe (cli/run.py) at full ``no_dropout`` width, stage by
+    stage through ``Recipe(RecipeConfig(..., device="cuda"))``: augment
+    (reverb and noise copies on the card) → make_features (MFCC and VAD
+    on the card, dither on) → make_egs (every archive through libxta;
+    the stream route must give archive 0's minibatches byte for byte) →
+    train (K2-K4, 6 calls per minibatch step, all "sm90"; the loss must
+    fall) → extract (K1 in bf16: v4 on layer 0, v5 on layers 1-4) and
+    extract_from_wav (K1) → score (EER at most RECIPE_EER_BOUND); each
+    stage is a main path, its counts zeroed just before it and read just
+    after.  Then ``cli.run`` (a synthetic corpus, --extract-from-wav) and
+    its ``--stage 3`` rerun, and ``cli.get_egs`` on stage 1's data dir,
+    whose archives must equal make_egs's.  Returns the K2-K4 launches by
+    design over the training stage and K1's layer launches by design over
+    the two extraction stages."""
+    from xvector_tpu_torch.cli import get_egs
+    from xvector_tpu_torch.cli import run as RUN
+    from xvector_tpu_torch.data import allocator as TAL
+    from xvector_tpu_torch.extract.extractor import (ExtractorConfig,
+                                                     speaker_means)
+    from xvector_tpu_torch.io.datadir import DataDir, load_data_dir
+    from xvector_tpu_torch.runtime import native
+    from xvector_tpu_torch.train.trainer import TrainConfig
+
+    t0 = time.perf_counter()
+    waves, utt2spk = recipe_corpus(seed)
+    rirs, noises = recipe_rirs_noises(seed)
+    clean_s = sum(len(w) for w in waves.values()) / WAVE_SR
+    print(f"recipe: corpus of {RECIPE_SPEAKERS} speakers x {RECIPE_UTTS} "
+          f"utterances, {clean_s:.1f} audio-s at {WAVE_SR} Hz "
+          f"({RECIPE_SECONDS[0]:g}-{RECIPE_SECONDS[1]:g} s each), "
+          f"{RECIPE_RIRS} RIRs and {RECIPE_NOISES} noises, made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not native.available():
+        fail("recipe: libxta is not available (no C++ compiler found)")
+    cfg = RUN.RecipeConfig(
+        work_dir=os.path.join(tmp, "recipe"), min_utt_frames=199,
+        num_archives=RECIPE_ARCHIVES,
+        allocator=TAL.AllocatorConfig(
+            frames_per_iter=RECIPE_FRAMES_PER_ITER),
+        train=TrainConfig(model="no_dropout", num_targets=1,
+                          num_epochs=RECIPE_EPOCHS,
+                          compute_dtype="bfloat16", block_size=16),
+        extractor=ExtractorConfig(compute_dtype="bfloat16"),
+        device=str(dev))
+    recipe = RUN.Recipe(cfg)
+    secs = {}
+
+    # stages 0 and 1: augmentation and features
+    zero_counts(CB, TK)
+    t0 = time.perf_counter()
+    data, provider = recipe.augment(DataDir(utt2spk=utt2spk),
+                                    waves.__getitem__, rirs=rirs,
+                                    noises=noises, kinds=("reverb", "noise"))
+    feat_dir = recipe.make_features(data, provider, split="all",
+                                    dither_seed=seed + 1)
+    torch.cuda.synchronize()
+    secs["features"] = time.perf_counter() - t0
+    audio_s = len(data) / len(waves) * clean_s
+    frames = sum(feat_dir.utt2num_frames.values())
+    voiced = sum(float(kio.read_vec_flt(feat_dir.vad[u]).sum())
+                 for u in data.utts)
+    print(f"recipe: stages 0-1 augment + make_features: {len(data)} "
+          f"utterances ({len(waves)} clean, reverb and noise copies), "
+          f"{audio_s:.1f} audio-s -> {frames} frames ({voiced / frames:.1%} "
+          f"voiced) in {secs['features']:.3f} s = "
+          f"{audio_s / secs['features']:.1f} audio-s/s [{tag}]")
+    if len(feat_dir.feats) != len(data) or len(feat_dir.vad) != len(data):
+        fail("recipe: make_features missed utterances")
+    for utt in data.utts[:: max(1, len(data) // 16)]:
+        m = kio.read_mat(feat_dir.feats[utt])
+        if m.shape != (feat_dir.utt2num_frames[utt], 23) \
+                or not np.isfinite(m).all():
+            fail(f"recipe: features of {utt} are {m.shape} or not finite")
+    # stage 1 hands over a Kaldi data dir on disk, as run.sh does; stage 2
+    # and cli.get_egs both read it back (the diagnostic archives' plans
+    # follow utt2spk's order, which the file sorts)
+    data_dir = os.path.join(tmp, "recipe_data")
+    feat_dir.save(data_dir)
+    feat_dir = load_data_dir(data_dir)
+
+    # stage 2: egs, every archive through libxta
+    native_calls = []
+    real_native, real_python = (TA.materialize_archive_native,
+                                TA.materialize_archive)
+
+    def counted_native(plan, path, *a, **kw):
+        done = real_native(plan, path, *a, **kw)
+        native_calls.append((os.path.basename(path), done))
+        return done
+
+    def refused(*a, **kw):
+        fail("recipe: make_egs fell back to the Python materialisation")
+
+    zero_counts(CB, TK)
+    TA.materialize_archive_native, TA.materialize_archive = (counted_native,
+                                                             refused)
+    try:
+        t0 = time.perf_counter()
+        train_dir, valid_dir, n_targets = recipe.make_egs(feat_dir)
+        secs["egs"] = time.perf_counter() - t0
+    finally:
+        TA.materialize_archive_native, TA.materialize_archive = (real_native,
+                                                                 real_python)
+    names = [f"egs.{i}.xta" for i in range(RECIPE_ARCHIVES)] + [
+        "valid_egs.xta", "train_subset_egs.xta"]
+    n_mb = {}
+    for name in names:
+        with TA.ArchiveReader(recipe._p(name)) as r:
+            n_mb[name] = len(r)
+    mbytes = sum(os.path.getsize(recipe._p(n)) for n in names) / 1e6
+    print(f"recipe: stage 2 make_egs: {n_targets} targets, "
+          f"{len(train_dir)} train / {len(valid_dir)} valid utterances, "
+          f"archives {n_mb} ({mbytes:.1f} MB) in {secs['egs']:.3f} s; "
+          f"libxta calls {native_calls} [{tag}]")
+    if native_calls != [(n, True) for n in names]:
+        fail("recipe: not every archive came from materialize_archive_native")
+    if n_targets != RECIPE_SPEAKERS:
+        fail(f"recipe: {n_targets} targets, expected {RECIPE_SPEAKERS}")
+
+    # the stream route and the Python route against archive 0
+    src, usable = recipe._prepare_egs_feats(feat_dir)
+    s2i = DataDir({**train_dir.utt2spk, **valid_dir.utt2spk}).spk2int()
+    plan0 = next(iter(TAL.allocate_archives(
+        {u: usable[u] for u in train_dir.utts},
+        {u: s2i[s] for u, s in train_dir.utt2spk.items()},
+        cfg.allocator, num_archives=RECIPE_ARCHIVES)))
+    shuffle = cfg.allocator.seed
+    with TA.ArchiveReader(recipe._p("egs.0.xta")) as r:
+        stored = list(r)
+    streamed = list(TA.iter_plan_minibatches(plan0, utt2src=src,
+                                             shuffle_seed=shuffle))
+    same = len(stored) == len(streamed) and all(
+        xa.tobytes() == xb.tobytes() and np.array_equal(ya, yb) and ta == tb
+        for (xa, ya, ta), (xb, yb, tb) in zip(stored, streamed))
+    print(f"recipe: iter_plan_minibatches over archive 0's plan (libxta, "
+          f"shuffle seed {shuffle}): {len(streamed)} minibatches, byte for "
+          f"byte those of egs.0.xta: {same}")
+    if not same:
+        fail("recipe: the stream route differs from archive 0")
+    rates = {}
+    size = os.path.getsize(recipe._p("egs.0.xta")) / 1e6
+    for route in ("native", "python"):
+        out = os.path.join(tmp, f"egs0_{route}.xta")
+        t0 = time.perf_counter()
+        if route == "native":
+            TA.materialize_archive_native(plan0, out, src,
+                                          shuffle_seed=shuffle)
+        else:
+            TA.materialize_archive(
+                plan0, out, lambda u: kio.read_mat(f"{src[u][0]}:{src[u][1]}"),
+                shuffle_seed=shuffle)
+        dt = time.perf_counter() - t0
+        rates[route] = (len(plan0.minibatches) / dt, size / dt, dt)
+        if file_bytes(out) != file_bytes(recipe._p("egs.0.xta")):
+            fail(f"recipe: the {route} materialisation of archive 0 differs")
+    print("timing recipe materialisation of archive 0 ("
+          f"{len(plan0.minibatches)} minibatches, {size:.1f} MB, from the "
+          "egs feature ark): " + "; ".join(
+              f"{r} {v[0]:.1f} minibatches/s, {v[1]:.1f} MB/s ({v[2]:.3f} s)"
+              for r, v in rates.items())
+          + f"; native/python {rates['native'][0] / rates['python'][0]:.2f}x"
+          f" [{tag}]")
+
+    # stage 3: train
+    zero_counts(CB, TK)
+    t0 = time.perf_counter()
+    trainer = recipe.train(n_targets)
+    torch.cuda.synchronize()
+    secs["train"] = time.perf_counter() - t0
+    launches, routes = dict(CB.launches), dict(CB.route_launches)
+    recs = read_metrics(trainer.work_dir)
+    train = [r for r in recs if r.get("kind") == "train"]
+    steps = sum(int(r["minibatches"]) for r in train)
+    iter_s = sum(r["seconds"] for r in train)
+    print(f"recipe: stage 3 train: {len(train)} iterations, {steps} "
+          f"minibatch steps, loss {train[0]['loss']:.4f} -> "
+          f"{train[-1]['loss']:.4f}, accuracy {train[0]['accuracy']:.4f} -> "
+          f"{train[-1]['accuracy']:.4f}; {secs['train']:.3f} s = "
+          f"{1e3 * secs['train'] / steps:.2f} ms per minibatch (stage wall: "
+          f"checkpoints, diagnostics included), iterations alone "
+          f"{1e3 * iter_s / steps:.2f} ms per minibatch [{tag}]")
+    wide = 2            # no_dropout's layers 1 and 2: k > 1, k·Cin > 160
+    want = {n: wide * steps for n in ("fwd", "dw", "dx")}
+    want_routes = {f"{n}_{d}": want[n] if d == "sm90" else 0
+                   for n in ("fwd", "dw", "dx") for d in ("sm90", "sm80")}
+    print(f"recipe: K2/K3/K4 calls over stage 3 {launches}, by design "
+          f"{routes} (expected {want_routes})")
+    if len(train) != RECIPE_EPOCHS * RECIPE_ARCHIVES:
+        fail(f"recipe: {len(train)} training iterations")
+    if launches != want or routes != want_routes:
+        fail("recipe: K2/K3/K4 launch counts of stage 3 are off")
+    if not all(math.isfinite(r["loss"]) for r in train) \
+            or not train[-1]["loss"] < train[0]["loss"]:
+        fail("recipe: the training loss did not fall")
+
+    # stage 4: extraction from the feature arks, then from the waveforms
+    k1 = {}
+    xvs = {}
+    for how in ("extract", "extract_from_wav"):
+        zero_counts(CB, TK)
+        t0 = time.perf_counter()
+        if how == "extract":
+            xvs[how] = recipe.extract(trainer, feat_dir, "all")
+        else:
+            xvs[how] = recipe.extract_from_wav(trainer, feat_dir, provider,
+                                               "all")
+        torch.cuda.synchronize()
+        secs[how] = time.perf_counter() - t0
+        k1[how] = dict(TK.route_launches)
+        xv = xvs[how]
+        print(f"recipe: stage 4 {how}: {len(xv)} x-vectors in "
+              f"{secs[how]:.3f} s = {len(xv) / secs[how]:.1f} x-vectors/s; "
+              f"K1 layer launches by design {k1[how]} [{tag}]")
+        if len(xv) != len(data) or not all(
+                v.shape == (512,) and np.isfinite(v).all()
+                for v in xv.values()):
+            fail(f"recipe: {how} gave {len(xv)} x-vectors or bad ones")
+        if not (k1[how]["sm80"] > 0
+                and k1[how]["sm90"] == 4 * k1[how]["sm80"]):
+            fail(f"recipe: K1 did not run v4 on layer 0 and v5 on layers "
+                 f"1-4 in {how}")
+    cos = [cosine(xvs["extract"][u], xvs["extract_from_wav"][u])
+           for u in data.utts]
+    print(f"recipe: feature-ark vs waveform x-vectors (dither on in stage 1 "
+          f"only, compressed arks): cosine median {np.median(cos):.6f}, min "
+          f"{min(cos):.6f}")
+
+    # stage 5: score, enrolment on half of each speaker's clean utterances
+    t0 = time.perf_counter()
+    results = {}
+    for how, xv in xvs.items():
+        enroll = {u: xv[u] for u in waves if int(u[-1]) < RECIPE_UTTS // 2}
+        test = {u: xv[u] for u in waves if int(u[-1]) >= RECIPE_UTTS // 2}
+        spk_enroll, num_utts = speaker_means(enroll, utt2spk)
+        trials = [(s, t, int(utt2spk[t] == s)) for s in spk_enroll
+                  for t in test]
+        train_xv = {u: xv[u] for u in train_dir.utts}
+        results[how] = recipe.score(train_xv, train_dir, spk_enroll, test,
+                                    trials, num_utts=num_utts)
+    secs["score"] = time.perf_counter() - t0
+    print("recipe: stage 5 score: " + "; ".join(
+        f"{how} EER {r['eer']:.4f}, minDCF {r['min_dcf']:.4f} "
+        f"({r['num_trials']} trials)" for how, r in results.items())
+        + f" in {secs['score']:.3f} s (bound {RECIPE_EER_BOUND}) [{tag}]")
+    for how, r in results.items():
+        if not r["eer"] <= RECIPE_EER_BOUND:
+            fail(f"recipe: {how} EER {r['eer']:.4f} above "
+                 f"{RECIPE_EER_BOUND}")
+    print("timing recipe stages (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items())
+        + f"; total {sum(secs.values()):.3f} [{tag}]")
+
+    # cli.run end to end, then a --stage 3 rerun
+    work = os.path.join(tmp, "cli_run")
+    argv = [f"--work-dir={work}", f"--synthetic-speakers="
+            f"{RECIPE_CLI_SPEAKERS}", f"--synthetic-utts={RECIPE_CLI_UTTS}",
+            "--model=no_dropout", "--extract-from-wav", f"--device={dev}"]
+    kept = ("feats_all.ark", "egs_feats.ark", "egs.0.xta", "egs.1.xta")
+    ckpt = os.path.join(work, "exp", "model_0", "ckpt.pt")
+    for rerun in (False, True):
+        zero_counts(CB, TK)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = RUN.main(argv + (["--stage=3"] if rerun else []))
+        dt = time.perf_counter() - t0
+        routes_cli, k1_cli = dict(CB.route_launches), dict(TK.route_launches)
+        print(f"recipe: cli.run {' '.join(argv)}"
+              + (" --stage=3" if rerun else "") + f": {dt:.3f} s, EER "
+              f"{res['eer']:.4f} ({res['num_trials']} trials); K2-K4 by "
+              f"design {routes_cli}, K1 {k1_cli} [{tag}]")
+        if not (routes_cli["fwd_sm90"] > 0 and routes_cli["fwd_sm90"]
+                == routes_cli["dw_sm90"] == routes_cli["dx_sm90"]
+                and k1_cli["sm90"] == 4 * k1_cli["sm80"] > 0):
+            fail("recipe: cli.run did not train through K2-K4 and extract "
+                 "through K1")
+        if not rerun:
+            stamps = {n: os.stat(os.path.join(work, n)).st_mtime_ns
+                      for n in kept}
+            ckpt_stamp = os.stat(ckpt).st_mtime_ns
+        elif ({n: os.stat(os.path.join(work, n)).st_mtime_ns for n in kept}
+              != stamps or os.stat(ckpt).st_mtime_ns == ckpt_stamp
+              or "forcing re-run from stage 3" not in buf.getvalue()):
+            fail("recipe: the --stage 3 rerun did not reuse the features "
+                 "and egs and retrain")
+
+    # cli.get_egs on stage 1's data dir: make_egs's archives, byte for byte
+    egs = os.path.join(tmp, "get_egs")
+    flags = ["--min-frames-per-chunk=200", "--max-frames-per-chunk=400",
+             "--minibatch-size=64", "--num-repeats=35",
+             f"--frames-per-iter={RECIPE_FRAMES_PER_ITER}",
+             f"--num-train-archives={RECIPE_ARCHIVES}",
+             f"--num-heldout-utts={cfg.num_valid_utts}",
+             f"--min-utt-frames={cfg.min_utt_frames}",
+             f"--min-spk-utts={cfg.min_spk_utts}",
+             f"--random-seed={cfg.allocator.seed}", f"--device={dev}",
+             data_dir, egs]
+    out, dt = run_cli(get_egs, flags)
+    differ = same_archives(egs, recipe.cfg.work_dir,
+                           names + ["pdf2num", "egs_info.json"])
+    print(f"recipe: cli.get_egs {' '.join(flags[:-2])} <data> <egs>: "
+          f"{out[-1]} in {dt:.3f} s; files differing from make_egs's: "
+          f"{differ} [{tag}]")
+    if differ:
+        fail("recipe: get_egs archives differ from make_egs's")
+    return routes, {d: k1["extract"][d] + k1["extract_from_wav"][d]
+                    for d in ("sm90", "sm80")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2614,6 +3022,7 @@ def main(argv=None) -> int:
     from xvector_tpu_torch.models import tdnn as tt
     from xvector_tpu_torch.data import archives as TA
     from xvector_tpu_torch.ops import _build
+    from xvector_tpu_torch.runtime import native
     from xvector_tpu_torch.ops import conv_bwd as CB
     from xvector_tpu_torch.ops import tdnn_kernel as TK
     from xvector_tpu_torch.train import schedules
@@ -2626,10 +3035,17 @@ def main(argv=None) -> int:
     print(card)   # exactly as nvidia-smi gives it
     tag = card
 
-    # 2. build every kernel source, all nvcc processes started together
+    # 2. build every kernel source, all nvcc processes started together,
+    # and the host data plane (libxta, g++) beside them
     t0 = time.perf_counter()
-    logs = _build.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs)}")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        libxta = pool.submit(native.available)
+        logs = _build.build()
+        if not libxta.result():
+            fail("build: libxta is unavailable (no C++ compiler found)")
+    print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs)} and "
+          f"{os.path.relpath(native.lib_path(native._compiler()), REPO)} "
+          f"({native.threads()} materialisation threads)")
     for src, text in logs.items():
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "warning")):
@@ -2674,6 +3090,14 @@ def main(argv=None) -> int:
         # 12. the scoring back end at SRE16 evaluation size, scoring also
         # phase 11's x-vectors
         phase_backend(CB, TK, dev, args.seed, tag, tmp, wave_ark)
+
+    # 13. the recipe at full width: augment -> features -> egs -> train ->
+    # extract -> score, then cli.run and cli.get_egs
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        recipe_routes, recipe_k1 = phase_recipe(CB, TK, TA, kio, dev,
+                                                args.seed, tag, tmp)
+    print(f"recipe: phase 13 took {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the device "
           f"check to here")
 
@@ -2707,6 +3131,9 @@ def main(argv=None) -> int:
             # ... and over the wave path's main run (phase 11)
             "wave_launches": wave_routes["sm90" if key == "rule"
                                          else "sm80"],
+            # ... and over the recipe's two extraction stages (phase 13)
+            "recipe_launches": recipe_k1["sm90" if key == "rule"
+                                         else "sm80"],
             **({"launches_by_design": main_routes} if key == "rule" else {}),
         })
     # K2-K4: the main path makes one k=5 and one k=7 call of each per
@@ -2732,6 +3159,8 @@ def main(argv=None) -> int:
             "launches": routes[route],
             # its calls over train_dnn's run (6 iterations, combination)
             "cli_launches": cli_routes[route],
+            # ... and over the recipe's training stage (phase 13)
+            "recipe_launches": recipe_routes[route],
             "max_abs_err": conv_errs[key],
             **mean,
             "bound_by": per_k[0]["bound_by"],

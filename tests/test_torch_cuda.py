@@ -616,3 +616,86 @@ def test_plda_device_on_card_matches_cpu_and_host(cuda_device, tf32):
         np.testing.assert_allclose(
             PD.project_device(host, v, device=cuda_device, **kw).cpu(),
             host.project(v, **kw), rtol=2e-4, atol=2e-4)
+
+
+def _recipe_corpus(num_spk=5, utts=4, seed=0):
+    """Resonant-tone speakers (tests/test_e2e.py's generator)."""
+    rng = np.random.RandomState(seed)
+    f0 = rng.uniform(300, 3000, size=(num_spk, 2))
+    waves, utt2spk = {}, {}
+    for s in range(num_spk):
+        for u in range(utts):
+            n = int(8000 * rng.uniform(1.8, 2.5))
+            t = np.arange(n) / 8000
+            w = sum(np.sin(2 * np.pi * f * t + rng.uniform(0, 6))
+                    for f in f0[s])
+            waves[f"spk{s}_utt{u}"] = (3000 * w + 300 * rng.randn(n)).astype(
+                np.float32)
+            utt2spk[f"spk{s}_utt{u}"] = f"spk{s}"
+    return waves, utt2spk
+
+
+@pytest.mark.cuda
+def test_tiny_recipe_on_card_matches_cpu(cuda_device, tmp_path):
+    """The recipe's stages 1-4 at ``tiny`` width in f32 on the card and on
+    the CPU, dither off: features within the CPU suite's bounds, VAD and
+    the egs plans equal (archive labels, lengths and shapes), archive
+    values at most one float16 step apart beyond CMVN's f32 round-off, a
+    falling loss on the card, and the card's extraction of its own model
+    equal to the CPU's extraction of the same weights (1e-3 normalised)."""
+    from xvector_tpu_torch.cli import run as RUN
+    from xvector_tpu_torch.data import allocator as AL
+    from xvector_tpu_torch.data import archives as AR
+    from xvector_tpu_torch.io import kaldi_ark as kio
+    from xvector_tpu_torch.io.datadir import DataDir
+    from xvector_tpu_torch.models.convert import tree_map
+
+    waves, utt2spk = _recipe_corpus()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        recipe = RUN.Recipe(RUN.RecipeConfig(
+            str(tmp_path / dev), min_utt_frames=60, num_valid_utts=4,
+            num_archives=2, compress_feats=False, device=dev,
+            allocator=AL.AllocatorConfig(min_frames=60, max_frames=120,
+                                         minibatch_size=8, num_repeats=3,
+                                         frames_per_iter=20_000, seed=1),
+            train=TR.TrainConfig(model="tiny", num_targets=1, num_epochs=2,
+                                 compute_dtype="float32")))
+        feat = recipe.make_features(DataDir(utt2spk=utt2spk),
+                                    waves.__getitem__, "all",
+                                    dither_seed=None)
+        recipe.make_egs(feat)
+        out[dev] = (recipe, feat)
+    (cpu, cfeat), (card, gfeat) = out["cpu"], out["cuda"]
+    for utt in utt2spk:
+        np.testing.assert_allclose(kio.read_mat(gfeat.feats[utt]),
+                                   kio.read_mat(cfeat.feats[utt]),
+                                   rtol=1e-4, atol=2e-3)
+        np.testing.assert_array_equal(kio.read_vec_flt(gfeat.vad[utt]),
+                                      kio.read_vec_flt(cfeat.vad[utt]))
+    for name in ("egs.0.xta", "egs.1.xta", "valid_egs.xta"):
+        got = list(AR.ArchiveReader(card._p(name)))
+        want = list(AR.ArchiveReader(cpu._p(name)))
+        assert len(got) == len(want) > 0
+        for (xa, ya, ta), (xb, yb, tb) in zip(got, want):
+            assert xa.shape == xb.shape and ta == tb
+            np.testing.assert_array_equal(ya, yb)
+            step = np.spacing(np.maximum(np.abs(xa), np.abs(xb)))
+            assert np.all(np.abs(xa.astype(np.float32)
+                                 - xb.astype(np.float32))
+                          <= step.astype(np.float32) + 1e-5)
+    trainer = card.train(len(set(utt2spk.values())))
+    import json
+    with open(os.path.join(trainer.work_dir, "metrics.jsonl")) as f:
+        train = [r for r in map(json.loads, f) if r["kind"] == "train"]
+    assert train[-1]["loss"] < train[0]["loss"]
+    got = card.extract(trainer, gfeat, "all")
+    host = type("T", (), {})()
+    host.model_cfg = trainer.model_cfg
+    host.params = tree_map(lambda t: t.detach().cpu(), trainer.params)
+    host.state = tree_map(lambda t: t.detach().cpu(), trainer.state)
+    want = cpu.extract(host, gfeat, "card_weights")
+    assert set(got) == set(want) and len(got) == len(utt2spk)
+    for utt in want:
+        err = np.abs(got[utt] - want[utt]).max() / np.abs(want[utt]).max()
+        assert err <= 1e-3, (utt, err)

@@ -16,7 +16,7 @@ import torch
 from xvector_tpu.models import tdnn as jt
 from xvector_tpu_torch.backend import plda as BP
 from xvector_tpu_torch.backend import plda_device as PD
-from xvector_tpu_torch.cli import extract_embedding
+from xvector_tpu_torch.cli import extract_embedding, get_egs
 from xvector_tpu_torch.cli import run as RUN
 from xvector_tpu_torch.extract import extractor as TE
 from xvector_tpu_torch.models import tdnn as tt
@@ -82,7 +82,8 @@ def test_no_jax_import_in_source(path):
                                    "project_device", "score_matrix",
                                    "score_trials_device",
                                    "train_plda_device", "Recipe",
-                                   "import_reference_h5", "cli_h5"])
+                                   "import_reference_h5", "cli_h5",
+                                   "cli_run", "cli_get_egs"])
 def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
     cfg = tt.MODEL_ZOO["tiny"]
     tp, ts = tt.init_params(torch.Generator().manual_seed(0), cfg, 3,
@@ -126,6 +127,11 @@ def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
         "Recipe": lambda: RUN.Recipe(RUN.RecipeConfig(str(tmp_path / "r"))),
         "import_reference_h5": lambda: EX.import_reference_h5(
             str(tmp_path / "model.h5"), cfg, 3),
+        "cli_run": lambda: RUN.main([
+            f"--work-dir={tmp_path / 'run'}", "--synthetic-speakers=2",
+            "--synthetic-utts=2", "--model=tiny"]),
+        "cli_get_egs": lambda: get_egs.main([str(tmp_path / "data"),
+                                             str(tmp_path / "egs")]),
         "cli_h5": lambda: extract_embedding.main([
             f"--reference-h5={tmp_path / 'model.h5'}", "--model=tiny",
             "--num-targets=3", f"--feats-rspecifier=ark:{tmp_path}/f.ark",

@@ -159,7 +159,7 @@ def main(argv=None):
         def stream():
             reader = (kio.read_mat_scp(args.feats_rspecifier)
                       if args.feats_rspecifier.startswith("scp")
-                      else kio.read_mat_ark(args.feats_rspecifier))
+                      else kio.read_mat_ark_fast(args.feats_rspecifier))
             for utt, feats in shard(reader):
                 if args.apply_cmvn or utt in vad:
                     feats = preprocess(feats, vad=vad.get(utt),

@@ -4,8 +4,12 @@ Own copy of what extraction needs from ``xvector_tpu/io/kaldi_ark.py``
 (the port imports nothing of that package): rspecifier parsing with pipe
 support, float matrices (including compressed CM/CM2/CM3 reads and the
 CM/CM2 writer), float vectors (one by one, or in bulk as an (N, dim)
-matrix for the back end), and the ark+scp writer.  The native libxta
-readers are not ported yet.
+matrix for the back end), int vectors, posteriors, segments, and the
+ark+scp writer.  ``read_mat_ark_fast``, ``read_vec_flt_ark_fast`` and
+``read_vec_flt_matrix`` route plain ark files and ``cmd |`` pipes through
+libxta's sequential decoder (``runtime/native.py``) when a compiler is
+present, and through the Python reader otherwise; both give the same
+keys and float32 values.
 
 Format notes
 ------------
@@ -32,10 +36,12 @@ from typing import BinaryIO, Iterator, Tuple
 
 import numpy as np
 
-__all__ = ["open_or_fd", "read_mat", "read_mat_ark", "read_mat_scp",
-           "write_mat", "read_vec_flt", "read_vec_flt_ark",
+__all__ = ["open_or_fd", "read_mat", "read_mat_ark", "read_mat_ark_fast",
+           "read_mat_scp", "write_mat", "read_vec_flt", "read_vec_flt_ark",
            "read_vec_flt_scp", "read_vec_flt_ark_fast",
-           "read_vec_flt_matrix", "write_vec_flt", "ArkWriter"]
+           "read_vec_flt_matrix", "write_vec_flt", "read_vec_int",
+           "write_vec_int", "read_vec_int_ark", "read_post_ark",
+           "read_segments_as_bool_vec", "ArkWriter"]
 
 
 # ---------------------------------------------------------------------------
@@ -352,6 +358,67 @@ def read_mat_ark(file_or_fd) -> Iterator[Tuple[str, np.ndarray]]:
         _maybe_close(fd, file_or_fd)
 
 
+def read_mat_ark_fast(rxspec) -> Iterator[Tuple[str, np.ndarray]]:
+    """``read_mat_ark`` that routes plain binary ark files and ``cmd |``
+    pipes (the reference's extraction rspecifier,
+    ``extract_xvectors.sh:68``) through libxta's sequential decoder
+    (``xta_stream_*``) when it is available; stdin, gzip and open files
+    take the Python reader.  Yields identical (key, float32 matrix) pairs
+    either way."""
+    it = _native_stream_iter(rxspec)
+    if it is not None:
+        yield from it
+        return
+    yield from read_mat_ark(rxspec)
+
+
+def _strip_ark_options(rxspec: str) -> str:
+    head, sep, tail = rxspec.partition(":")
+    if sep and all(tok in ("ark", "t", "b", "p", "o", "s", "cs", "f", "n")
+                   for tok in head.split(",")):
+        return tail
+    return rxspec
+
+
+def _plain_ark_file(spec: str) -> bool:
+    return bool(spec and not spec.startswith("|") and spec != "-"
+                and not spec.endswith(".gz") and os.path.exists(spec))
+
+
+def _pipe_into(spec: str, reader):
+    """Run ``spec``'s command, hand its stdout's descriptor to ``reader``
+    and yield what the iterable it returns yields; a nonzero status after
+    a full read raises.  A consumer that stops early SIGPIPEs the producer
+    (141 via the shell, -13 raw), which is no failure."""
+    proc = subprocess.Popen(spec[:-1].strip(), shell=True,
+                            stdout=subprocess.PIPE)
+    drained = False
+    try:
+        yield from reader(proc.stdout.fileno())
+        drained = True
+    finally:
+        proc.stdout.close()
+        rc = proc.wait()
+        if drained and rc != 0:
+            raise IOError(f"pipe subprocess exited with {rc}")
+
+
+def _native_stream_iter(rxspec):
+    """Native sequential decode of a plain ark file or a ``cmd |`` pipe;
+    None when libxta is unavailable or the spec shape isn't covered."""
+    if not isinstance(rxspec, str):
+        return None
+    from ..runtime import native
+    if not native.available():
+        return None
+    spec = _strip_ark_options(rxspec)
+    if spec.endswith("|"):
+        return _pipe_into(spec, native.ArkStream)
+    if _plain_ark_file(spec):
+        return iter(native.ArkStream(spec))
+    return None
+
+
 def read_mat_scp(file_or_fd) -> Iterator[Tuple[str, np.ndarray]]:
     """Yield (key, matrix) over an scp file of ark offsets."""
     fd = open_or_fd(file_or_fd)
@@ -442,9 +509,14 @@ def read_vec_flt_scp(file_or_fd) -> Iterator[Tuple[str, np.ndarray]]:
 
 
 def read_vec_flt_ark_fast(rxspec) -> Iterator[Tuple[str, np.ndarray]]:
-    """The JAX package's ``read_vec_flt_ark_fast``, Python path only: the
-    port has no native libxta reader yet, so this is
-    :func:`read_vec_flt_ark` (same keys and float32 vectors)."""
+    """``read_vec_flt_ark`` through libxta's stream where it is available
+    (FV/DV entries come back from it as 1×dim matrices); the Python
+    reader otherwise."""
+    it = _native_stream_iter(rxspec)
+    if it is not None:
+        for key, mat in it:
+            yield key, mat.reshape(-1)
+        return
     yield from read_vec_flt_ark(rxspec)
 
 
@@ -453,8 +525,18 @@ def read_vec_flt_matrix(rxspec, dim_hint: int = 512):
     float32)``, the natural shape for the PLDA back end.  ``rxspec`` is
     an rspecifier as :func:`open_or_fd` takes it (``ark:`` options, a
     ``cmd |`` pipe, a path, an open file).  An empty ark gives
-    ``([], (0, dim_hint))``.  Python path only: the JAX package's native
-    bulk reader (libxta) is not ported, so this reads entry by entry."""
+    ``([], (0, dim_hint))``.  Plain files and pipes go through libxta's
+    bulk reader (one native call per 64k entries) where it is available;
+    everything else reads entry by entry."""
+    from ..runtime import native
+    if isinstance(rxspec, str) and native.available():
+        spec = _strip_ark_options(rxspec)
+        if spec.endswith("|"):
+            (out,) = _pipe_into(
+                spec, lambda fd: [native.read_vec_matrix(fd, dim_hint)])
+            return out
+        if _plain_ark_file(spec):
+            return native.read_vec_matrix(spec, dim_hint)
     keys, rows = [], []
     for key, vec in read_vec_flt_ark(rxspec):
         keys.append(key)
@@ -462,6 +544,106 @@ def read_vec_flt_matrix(rxspec, dim_hint: int = 512):
     if not rows:
         return [], np.empty((0, dim_hint), np.float32)
     return keys, np.stack(rows).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Int vectors
+# ---------------------------------------------------------------------------
+
+def read_vec_int(file_or_fd) -> np.ndarray:
+    fd = open_or_fd(file_or_fd)
+    try:
+        binary = fd.read(2)
+        if binary == b"\x00B":
+            dim = _read_basic_int32(fd)
+            # each element: size byte + int32
+            buf = np.frombuffer(fd.read(dim * 5), dtype=np.uint8)
+            return buf.reshape(dim, 5)[:, 1:].copy().view("<i4").ravel()
+        rest = (binary + fd.read()).decode("utf-8").strip()
+        rest = rest.strip("[] ")
+        return np.array(rest.split(), dtype=np.int32)
+    finally:
+        _maybe_close(fd, file_or_fd)
+
+
+def write_vec_int(file_or_fd, vec: np.ndarray, key: str = ""):
+    fd = open_or_fd(file_or_fd, mode="wb")
+    try:
+        if key:
+            fd.write((key + " ").encode("latin1"))
+        fd.write(b"\x00B")
+        _write_basic_int32(fd, len(vec))
+        out = np.empty((len(vec), 5), dtype=np.uint8)
+        out[:, 0] = 4
+        out[:, 1:] = np.asarray(vec, dtype="<i4")[:, None].view(np.uint8)
+        fd.write(out.tobytes())
+    finally:
+        _maybe_close(fd, file_or_fd)
+
+
+def read_vec_int_ark(file_or_fd) -> Iterator[Tuple[str, np.ndarray]]:
+    fd = open_or_fd(file_or_fd)
+    try:
+        while True:
+            key = _read_key(fd)
+            if key is None:
+                return
+            _expect_binary_entry(fd, key)
+            dim = _read_basic_int32(fd)
+            buf = np.frombuffer(fd.read(dim * 5), dtype=np.uint8)
+            yield key, buf.reshape(dim, 5)[:, 1:].copy().view("<i4").ravel()
+    finally:
+        _maybe_close(fd, file_or_fd)
+
+
+# ---------------------------------------------------------------------------
+# Posteriors & segments (kaldi_io.py:553-697 surface)
+# ---------------------------------------------------------------------------
+
+def read_post_ark(file_or_fd):
+    """Yield (key, posteriors) where posteriors is a list per frame of
+    (int id, float weight) pairs — Kaldi Posterior binary format."""
+    fd = open_or_fd(file_or_fd)
+    try:
+        while True:
+            key = _read_key(fd)
+            if key is None:
+                return
+            _expect_binary_entry(fd, key)
+            num_frames = _read_basic_int32(fd)
+            post = []
+            for _ in range(num_frames):
+                n = _read_basic_int32(fd)
+                frame = []
+                for _ in range(n):
+                    idx = _read_basic_int32(fd)
+                    size = fd.read(1)
+                    if size != b"\x04":
+                        raise ValueError("expected float size byte")
+                    (w,) = struct.unpack("<f", fd.read(4))
+                    frame.append((idx, w))
+                post.append(frame)
+            yield key, post
+    finally:
+        _maybe_close(fd, file_or_fd)
+
+
+def read_segments_as_bool_vec(path: str):
+    """Kaldi segments file for one recording → per-frame bool vector at
+    100 fps (kaldi_io.py read_segments_as_bool_vec semantics)."""
+    segs = []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) == 4:
+                segs.append((float(parts[2]), float(parts[3])))
+    if not segs:
+        return np.zeros(0, dtype=bool)
+    end = max(e for _, e in segs)
+    vec = np.zeros(int(round(end * 100.0)), dtype=bool)
+    for s, e in segs:
+        vec[int(round(s * 100.0)): int(round(e * 100.0))] = True
+    return vec
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@ are NIST SPHERE files whose payload is *embedded-shorten* compressed
 (``sample_coding`` of ``pcm,embedded-shorten-v2.00`` or
 ``ulaw,embedded-shorten-v2.00``), so replacing sph2pipe needs a shorten
 decoder.  This one runs a Python loop per sample (seconds per minute of
-audio); the native C++ decoder of the JAX package is not ported yet
-(ROADMAP A10a).
+audio): ``io/wav.py`` prefers libxta's native twin
+(``runtime/native.shorten_decode``, bit-identical) and keeps this one as
+the fallback without a compiler and as the tests' referee.
 
 Format summary (Tony Robinson's shorten, as consumed by sph2pipe):
 

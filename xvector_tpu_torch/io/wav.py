@@ -10,7 +10,9 @@ SPHERE support covers the NIST corpora the recipe uses: 16-bit PCM in
 either byte order, 8-bit µ-law and A-law, 1-2 channels with channel
 selection, and embedded-shorten compression (``pcm,embedded-shorten-v2.00``
 / ``ulaw,embedded-shorten-v2.00``, the payload of LDC SRE04-10/SWBD
-deliveries) through the pure-Python decoder in ``io/shorten.py``.
+deliveries) through libxta's native decoder (``runtime/native.py``) where
+a compiler is present, else through the pure-Python decoder in
+``io/shorten.py``, which gives the same samples.
 """
 
 from __future__ import annotations
@@ -109,7 +111,12 @@ def read_wav(f, channel: Optional[int] = None) -> Tuple[np.ndarray, int]:
 
 
 def _shorten_to_samples(payload: bytes, sample_count):
-    """Decode an embedded-shorten payload to an (n, nchan) int32 array."""
+    """Decode an embedded-shorten payload to an (n, nchan) int32 array,
+    preferring the native C++ decoder (``csrc/xta_io.cc``) and falling
+    back to the pure-Python one (``io/shorten.py``)."""
+    from ..runtime import native
+    if native.available():
+        return native.shorten_decode(payload, sample_count)
     samples, _, _ = shorten.decode(payload, max_samples=sample_count)
     return samples
 
