@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's extraction, training, wave, scoring and
-recipe paths on one GPU.
+"""Drive the PyTorch port's extraction, training, wave, scoring, recipe
+and SRE16 recipe paths on one GPU.
 
 Run from the repository root (one card, no arguments needed):
 
@@ -164,12 +164,41 @@ Phases; any failure raises and the exit code is non-zero:
    (minibatches/s, MB/s), the training stage's ms per minibatch, the
    extraction stages' x-vectors/s.
 
+14. the SRE16 recipe (``cli/run_sre16.py``) at full ``no_dropout`` width
+   (23 MFCC, minibatch 64, chunks of 200-400 frames, bf16, 512-d
+   x-vectors, LDA to 100, the stage-3 filters at 500 frames and 8
+   utterances) on a synthetic LDC tree from ``--seed``: SWBD cellular 1
+   as two-channel embedded-shorten SPHERE calls (48 speakers, each in 2
+   calls) with ``doc/swb_callstats.tbl``; a pre-built SRE data dir of 104
+   speakers (two-channel PCM SPHERE, ``#chN`` entries), the PLDA pool;
+   the SRE16 eval tree (40 models, half tgl and half yue, µ-law enrolment
+   and PCM test segments) with its evaluation key in the reference's
+   ``download/sre16_evaluation_key`` layout; unlabeled majors at 16 kHz;
+   MUSAN (noise, music, speech) and RIRS trees on disk.  Run 1 is
+   ``run_sre16.main`` in-process with --extract-from-wav, MUSAN and RIRS
+   augmentation and final combination (the main path: K2-K4 6 "sm90"
+   calls per training step, K1 v4 on layer 0 and v5 on layers 1-4 in
+   both extraction routes; counts zeroed just before, read just after);
+   run 2 is ``python -m xvector_tpu_torch.cli.run_sre16 ... --stage 7``
+   without it, in a child process (through ``runpy``, which sends its
+   launch counts back): the feature-ark route, which must rewrite no egs,
+   feature or checkpoint file and train nothing.  Checks for both runs:
+   ``sre16_results.json`` with both variants per language over the key's
+   filtered trials, out-of-domain EER at most 0.25, the ``sre_combined``
+   pool exactly the SRE speakers' utterances clean and augmented, one
+   score per trial in ``scores_*.txt`` and a parsing ``scores_*.tsv``,
+   and ``egs_info.json``'s archive count from ``get_egs.sh:120``.  Timing
+   lines: ``stage_walls.json`` of both runs, x-vectors/s per extracted
+   split, the training stage's ms per minibatch, each run's wall time.
+
 The line before the last is ``{"kernels": [...]}`` (K1 and K2-K4 in the
 main path's designs, and rows for the "sm80" designs with their main-path
 launch counts, each with its launches over the CLI phase as
-``cli_launches`` and over the recipe's stages (training for K2-K4, both
-extraction stages for K1) as ``recipe_launches``, and K1's over the wave
-phase as ``wave_launches``); the last line is
+``cli_launches``, over the recipe's stages (training for K2-K4, both
+extraction stages for K1) as ``recipe_launches`` and over run_sre16's
+runs (training for K2-K4, both runs' extraction for K1) as
+``sre16_launches``, and K1's over the wave phase as ``wave_launches``);
+the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full f32
 (``torch.backends.cuda.matmul.allow_tf32 = False``) so the plain versions
 are true f32 referees.
@@ -1606,10 +1635,11 @@ def riff(samples, rate=WAVE_SR):
             + b"data" + struct.pack("<I", len(data)) + data)
 
 
-def sphere(raw: bytes, coding: str, n_bytes: int, byte_fmt="01", n=None):
+def sphere(raw: bytes, coding: str, n_bytes: int, byte_fmt="01", n=None,
+           channels=1, rate=WAVE_SR):
     head = ("NIST_1A\n   1024\n"
             + (f"sample_count -i {n}\n" if n is not None else "")
-            + f"channel_count -i 1\nsample_rate -i {WAVE_SR}\n"
+            + f"channel_count -i {channels}\nsample_rate -i {rate}\n"
             f"sample_n_bytes -i {n_bytes}\n"
             f"sample_byte_format -s{len(byte_fmt)} {byte_fmt}\n"
             f"sample_coding -s{len(coding)} {coding}\nend_head\n")
@@ -2644,27 +2674,39 @@ RECIPE_CLI_SPEAKERS = 16     # cli.run --synthetic-speakers
 RECIPE_CLI_UTTS = 6
 
 
+def voice(rng):
+    """A speaker's three resonances (poles at radius 0.97, 250-3600 Hz):
+    the denominator of the all-pole filter its speech goes through."""
+    a = np.array([1.0])
+    for f in rng.uniform(250, 3600, size=3):
+        a = np.convolve(a, [1.0, -2 * 0.97 * math.cos(
+            2 * math.pi * f / WAVE_SR), 0.97 ** 2])
+    return a
+
+
+def speak(rng, a, n):
+    """n samples of phase 11's bursts and gaps through the speaker's
+    resonances ``a``, at the bursts' level, in int16 range (float64)."""
+    from scipy.signal import lfilter
+    x = speechlike(rng, n)
+    y = lfilter([1.0], a, x.astype(np.float64))
+    y *= x.std() / max(y.std(), 1e-9)
+    return np.clip(np.rint(y), -32768, 32767)
+
+
 def recipe_corpus(seed):
     """RECIPE_SPEAKERS x RECIPE_UTTS utterances of 8 kHz speech-like audio
     from ``seed``: phase 11's bursts and gaps, shaped by three resonances
-    of the speaker's own (poles at radius 0.97, 250-3600 Hz), so that
-    speakers can be told apart; each utterance keeps its own random
-    spectral tilt."""
-    from scipy.signal import lfilter
+    of the speaker's own, so that speakers can be told apart; each
+    utterance keeps its own random spectral tilt."""
     rng = np.random.RandomState(seed + 130)
     waves, utt2spk = {}, {}
     for s in range(RECIPE_SPEAKERS):
-        a = np.array([1.0])
-        for f in rng.uniform(250, 3600, size=3):
-            a = np.convolve(a, [1.0, -2 * 0.97 * math.cos(
-                2 * math.pi * f / WAVE_SR), 0.97 ** 2])
+        a = voice(rng)
         for u in range(RECIPE_UTTS):
-            x = speechlike(rng, int(WAVE_SR * rng.uniform(*RECIPE_SECONDS)))
-            y = lfilter([1.0], a, x.astype(np.float64))
-            y *= x.std() / max(y.std(), 1e-9)
             utt = f"spk{s:02d}_u{u}"
-            waves[utt] = np.clip(np.rint(y), -32768, 32767).astype(
-                np.float32)
+            waves[utt] = speak(rng, a, int(
+                WAVE_SR * rng.uniform(*RECIPE_SECONDS))).astype(np.float32)
             utt2spk[utt] = f"spk{s:02d}"
     return waves, utt2spk
 
@@ -3007,6 +3049,471 @@ def phase_recipe(CB, TK, TA, kio, dev, seed, tag, tmp):
                     for d in ("sm90", "sm80")}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the SRE16 recipe (cli/run_sre16.py) on a synthetic LDC tree
+# ---------------------------------------------------------------------------
+
+SRE16_SWBD_SPEAKERS = 48     # SWBD cellular 1 speakers, one per call side
+SRE16_SWBD_CALLS = 2         # calls each SWBD speaker takes part in
+SRE16_POOL_SPEAKERS = 104    # --sre-data-dir speakers: more than --lda-dim
+SRE16_POOL_UTTS = 2          # utterances per pool speaker
+SRE16_MODELS = 40            # eval models, half tgl and half yue
+SRE16_TESTS = 2              # test segments per eval speaker
+SRE16_MAJOR_SPEAKERS = 24    # unlabeled majors: 2 segments each, 16 kHz
+SRE16_SECONDS = (9.0, 12.0)  # every utterance: > 500 voiced frames
+SRE16_EPOCHS = 1
+SRE16_NUM_REPEATS = 35       # run_sre16's default (run_xvector.sh:62)
+# ~4 archives of ~400 minibatches over the augmented training list
+SRE16_FRAMES_PER_ITER = 8_000_000
+SRE16_EER_BOUND = 0.25       # out-of-domain, far below chance (0.5)
+SRE16_AUG = ("reverb", "noise", "music", "babble")
+SRE16_SWBD_BASE = 40100      # conversation ids clear of the bad-audio lists
+SRE16_WORKERS = 8            # shorten encoder processes
+
+
+def _encode_shorten_call(samples):
+    """Embedded-shorten SPHERE bytes of (n, 2) int16 call sides, through
+    tests/shorten_ref.py (loaded by path: it runs in a worker process)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "shorten_ref", os.path.join(REPO, "tests", "shorten_ref.py"))
+    enc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(enc)
+    return enc.sphere_with_shorten(samples.astype(np.int64),
+                                   sample_rate=WAVE_SR)
+
+
+def sphere_pcm(samples, rate=WAVE_SR, byte_fmt="01"):
+    """SPHERE 16-bit PCM bytes of (n,) or (n, channels) int16 values."""
+    s = np.asarray(samples)
+    s = s[:, None] if s.ndim == 1 else s
+    return sphere(s.astype("<i2" if byte_fmt == "01" else ">i2").tobytes(),
+                  "pcm", 2, byte_fmt, n=s.shape[0], channels=s.shape[1],
+                  rate=rate)
+
+
+def _put(path, data):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def _lines(path, rows):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def write_sre16_tree(tmp, seed):
+    """The LDC/NIST tree phase 14 reads, from ``seed``:
+
+    - ``LDC2001S13``: SWBD cellular 1, calls of two speakers as
+      two-channel embedded-shorten SPHERE (one speaker per side), each
+      speaker in SRE16_SWBD_CALLS calls, and ``doc/swb_callstats.tbl``;
+    - ``sre_pool``: a pre-built Kaldi data dir (``--sre-data-dir``) of
+      SRE16_POOL_SPEAKERS speakers, two-channel PCM SPHERE with ``#chN``
+      entries: the PLDA pool;
+    - ``R149_0_1``: the SRE16 eval tree, SRE16_MODELS speakers with 1-3
+      µ-law enrolment segments and SRE16_TESTS PCM test segments each,
+      half tgl and half yue;
+    - ``download/sre16_evaluation_key`` beside it (the reference's
+      layout): segment → call, call → language, and same-language trials;
+    - ``major``: unlabeled majors at 16 kHz (resampled on reading);
+    - ``musan`` (noise, music, speech; some files at 16 kHz) and
+      ``RIRS_NOISES/simulated_rirs`` (small and medium rooms).
+
+    Returns the roots, the trial key as (model, segment, label) rows and
+    the pool's utterance ids."""
+    from scipy.signal import lfilter
+    from xvector_tpu_torch.io import wav as TW
+    rng = np.random.RandomState(seed + 140)
+    root = os.path.join(tmp, "ldc")
+
+    def secs():
+        return int(WAVE_SR * rng.uniform(*SRE16_SECONDS))
+
+    # SWBD cellular 1: speakers paired anew in every round of calls
+    swbd = os.path.join(root, "LDC2001S13")
+    voices = [voice(rng) for _ in range(SRE16_SWBD_SPEAKERS)]
+    genders = ["MF"[rng.randint(2)] for _ in voices]
+    calls, rows = [], []
+    for _ in range(SRE16_SWBD_CALLS):
+        order = rng.permutation(SRE16_SWBD_SPEAKERS)
+        for a, b in zip(order[0::2], order[1::2]):
+            n = secs()
+            conv = str(SRE16_SWBD_BASE + len(calls))
+            calls.append((conv, np.stack([speak(rng, voices[a], n),
+                                          speak(rng, voices[b], n)], 1)))
+            rows.append(f"{conv},{1000 + a},{1000 + b},{genders[a]},"
+                        f"{genders[b]}")
+    _lines(os.path.join(swbd, "doc", "swb_callstats.tbl"), rows)
+    import multiprocessing
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(SRE16_WORKERS, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        blobs = list(pool.map(_encode_shorten_call, [c for _, c in calls]))
+    for (conv, _), blob in zip(calls, blobs):
+        _put(os.path.join(swbd, "data", "audio", f"sw_{conv}.sph"), blob)
+
+    # the SRE pool: two pool utterances per two-channel file
+    pool_dir = os.path.join(root, "sre_pool")
+    utts = [(f"srespk{s:03d}", f"sre{s:03d}_{u}", voice_s)
+            for s, voice_s in enumerate(voice(rng)
+                                        for _ in range(SRE16_POOL_SPEAKERS))
+            for u in range(SRE16_POOL_UTTS)]
+    order = rng.permutation(len(utts))
+    u2s, scp = [], []
+    for i in range(0, len(order), 2):
+        n = secs()
+        pair = [utts[j] for j in order[i:i + 2]]
+        path = os.path.join(pool_dir, "audio", f"call{i // 2:03d}.sph")
+        _put(path, sphere_pcm(np.stack([speak(rng, v, n) for _, _, v in pair],
+                                       1), byte_fmt="10"))
+        for ch, (spk, utt, _) in enumerate(pair):
+            u2s.append(f"{utt} {spk}")
+            scp.append(f"{utt} {path}#ch{ch}")
+    _lines(os.path.join(pool_dir, "utt2spk"), sorted(u2s))
+    _lines(os.path.join(pool_dir, "wav.scp"), sorted(scp))
+
+    # the SRE16 eval tree and its evaluation key
+    ev = os.path.join(root, "R149_0_1")
+    key = os.path.join(root, "download", "sre16_evaluation_key")
+    enroll, subj, seg_call, lang_rows = (["modelid\tsegmentid"],
+                                         ["segmentid\tsubjectid"],
+                                         ["segmentid callid"], [])
+    tests = []
+    mu_dec = TW._mulaw_decode
+    for m in range(SRE16_MODELS):
+        v = voice(rng)
+        lang = ("tgl", "yue")[m % 2]
+        for u in range(1 + 2 * int(rng.rand() < 0.5)):   # 1 or 3 segments
+            seg = f"en{m:03d}{u}"
+            _put(os.path.join(ev, "data", "enrollment", f"{seg}.sph"),
+                 sphere(law_encode(speak(rng, v, secs()), mu_dec).tobytes(),
+                        "ulaw", 1))
+            enroll.append(f"model{m:03d}\t{seg}")
+        for u in range(SRE16_TESTS):
+            seg = f"te{m:03d}{u}"
+            _put(os.path.join(ev, "data", "test", f"{seg}.sph"),
+                 sphere_pcm(speak(rng, v, secs())))
+            subj.append(f"{seg}\tsubject{m:03d}")
+            seg_call.append(f"{seg} call_{seg}")
+            lang_rows.append(f"call_{seg} {lang}")
+            tests.append((seg, m))
+    trials = [(f"model{m:03d}", seg, int(m == t)) for seg, t in tests
+              for m in range(t % 2, SRE16_MODELS, 2)]
+    _lines(os.path.join(ev, "docs", "sre16_eval_enrollment.tsv"), enroll)
+    _lines(os.path.join(ev, "docs", "sre16_eval_segment_key.tsv"), subj)
+    _lines(os.path.join(key, "docs", "sre16_eval_segment_key.tsv"), seg_call)
+    _lines(os.path.join(key, "metadata", "calls.tsv"), lang_rows)
+    _lines(os.path.join(key, "docs", "sre16_eval_trial_key.tsv"),
+           ["modelid segmentid side targettype"] + [
+               f"{m} {seg} a {'target' if t else 'nontarget'}"
+               for m, seg, t in trials])
+
+    # unlabeled majors at 16 kHz
+    major = os.path.join(root, "major")
+    for s in range(SRE16_MAJOR_SPEAKERS):
+        v = voice(rng)
+        for u in range(2):
+            x = speak(rng, v, secs())
+            wide = np.interp(np.arange(2 * len(x)) / 2, np.arange(len(x)), x)
+            _put(os.path.join(major, "data", "unlabeled", "major",
+                              f"mj{s:03d}{u}.sph"),
+                 sphere_pcm(np.rint(wide), rate=2 * WAVE_SR))
+
+    # MUSAN and RIRS_NOISES
+    musan = os.path.join(root, "musan")
+    for i in range(4):
+        rate = WAVE_SR * (1 + i % 2)
+        x = 1500 * lfilter([1.0], [1.0, -rng.uniform(0.0, 0.95)],
+                           rng.randn(int(rate * rng.uniform(4, 8))))
+        _put(os.path.join(musan, "noise", "free-sound", f"noise-{i}.wav"),
+             riff(np.clip(np.rint(x), -32768, 32767), rate=rate))
+    for i in range(3):
+        t = np.arange(int(WAVE_SR * rng.uniform(6, 10))) / WAVE_SR
+        x = sum(2000 * np.sin(2 * np.pi * f * t) * (1 + np.sin(t * r))
+                for f, r in zip(rng.uniform(150, 1500, 4),
+                                rng.uniform(1, 6, 4)))
+        _put(os.path.join(musan, "music", "fma", f"music-{i}.wav"),
+             riff(np.rint(x / 4), rate=WAVE_SR))
+    for i in range(8):
+        _put(os.path.join(musan, "speech", "librivox", f"speech-{i}.wav"),
+             riff(speak(rng, voice(rng), secs()), rate=WAVE_SR))
+    rirs = os.path.join(root, "RIRS_NOISES")
+    for room in ("smallroom", "mediumroom"):
+        for i in range(3):
+            t = np.arange(int(WAVE_SR * rng.uniform(0.1, 0.4))) / WAVE_SR
+            h = 0.3 * rng.randn(len(t)) * np.exp(-t / rng.uniform(0.03, 0.1))
+            h[0] = 1.0
+            _put(os.path.join(rirs, "simulated_rirs", room, f"Room{i:03d}",
+                              f"{room}-Room{i:03d}-00001.wav"),
+                 riff(np.rint(h / np.abs(h).max() * 20000), rate=WAVE_SR))
+    return {"swbd": swbd, "pool": pool_dir, "eval": ev, "major": major,
+            "musan": musan, "rirs": rirs, "trials": trials,
+            "pool_utts": sorted(u for _, u, _ in utts),
+            "n_calls": len(calls), "enroll": len(enroll) - 1,
+            "tests": len(tests)}
+
+
+def time_extraction(RUN, splits):
+    """Wrap ``Recipe.extract`` and ``Recipe.extract_from_wav`` so that each
+    call records split -> (x-vectors, seconds) in ``splits``; returns the
+    function that restores them."""
+    real = RUN.Recipe.extract, RUN.Recipe.extract_from_wav
+
+    def timed(fn):
+        def wrapper(*args, **kw):       # split: the last positional or kw
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            splits[kw.get("split", args[-1])] = (len(out),
+                                                 time.perf_counter() - t)
+            return out
+        return wrapper
+
+    RUN.Recipe.extract, RUN.Recipe.extract_from_wav = map(timed, real)
+
+    def restore():
+        RUN.Recipe.extract, RUN.Recipe.extract_from_wav = real
+    return restore
+
+
+# run_sre16 in a child process: ``python -m`` semantics (runpy), with the
+# kernels' launch counts and the extraction stages' times sent back as the
+# last line of its output
+SRE16_CHILD = r"""
+import json, runpy, sys
+import chip_smoke
+from xvector_tpu_torch.cli import run as RUN
+from xvector_tpu_torch.ops import conv_bwd as CB, tdnn_kernel as TK
+secs = {}
+chip_smoke.time_extraction(RUN, secs)
+sys.argv = ["run_sre16"] + json.loads(sys.argv[1])
+runpy.run_module("xvector_tpu_torch.cli.run_sre16", run_name="__main__")
+print(json.dumps({"k1": TK.route_launches, "conv": CB.route_launches,
+                  "splits": secs}))
+"""
+
+
+def sre16_expected_trials(trials, work, prefix):
+    """The key's trials whose model has an enrolment x-vector and whose
+    segment a test x-vector in this run (run_sre16.py's filter)."""
+    from xvector_tpu_torch.io import kaldi_ark as kio
+    enroll = {u.split("-", 1)[0] for u, _ in kio.read_vec_flt_scp(
+        os.path.join(work, f"{prefix}sre16_enroll.scp"))}
+    test = {u for u, _ in kio.read_vec_flt_scp(
+        os.path.join(work, f"{prefix}sre16_test.scp"))}
+    return [t for t in trials if t[0] in enroll and t[1] in test]
+
+
+def check_sre16_run(name, work, res, tree, prefix, tag):
+    """The checks both runs share: both variants per language over the
+    filtered trials, the out-of-domain EER, the PLDA pool, the score
+    files and the archive count."""
+    from xvector_tpu_torch.io import kaldi_ark as kio
+    want = sre16_expected_trials(tree["trials"], work, prefix)
+    with open(os.path.join(work, "sre16_results.json")) as f:
+        results = json.load(f)
+    for variant in ("out_of_domain", "adapted"):
+        r, j = res.get(variant), results.get(variant)
+        if r is None or j is None:
+            fail(f"sre16 {name}: no {variant} result")
+        if set(j.get("per_condition", {})) != {"tgl", "yue"} or \
+                set(r.get("per_condition", {})) != {"tgl", "yue"}:
+            fail(f"sre16 {name}: {variant} per_condition "
+                 f"{sorted(j.get('per_condition', {}))}, not tgl and yue")
+        if not r["num_trials"] == j["num_trials"] == len(want) > 0:
+            fail(f"sre16 {name}: {variant} scored {j['num_trials']} trials, "
+                 f"the key's filtered trials are {len(want)}")
+        with open(os.path.join(work, f"scores_{variant}.txt")) as f:
+            lines = f.read().splitlines()
+        if [tuple(x.split()[:2]) for x in lines] != [t[:2] for t in want] \
+                or not all(math.isfinite(float(x.split()[2]))
+                           for x in lines):
+            fail(f"sre16 {name}: scores_{variant}.txt is not one finite "
+                 f"score per trial")
+        with open(os.path.join(work, f"scores_{variant}.tsv")) as f:
+            tsv = [x.split("\t") for x in f.read().splitlines()]
+        if tsv[0] != ["modelid", "segmentid", "side", "LLR"] \
+                or len(tsv) != len(want) + 1 \
+                or not all(len(x) == 4 and math.isfinite(float(x[3]))
+                           for x in tsv[1:]):
+            fail(f"sre16 {name}: scores_{variant}.tsv does not parse")
+    ood = results["out_of_domain"]["eer"]
+    if not ood <= SRE16_EER_BOUND:
+        fail(f"sre16 {name}: out-of-domain EER {ood:.4f} above "
+             f"{SRE16_EER_BOUND}")
+    pool = {u for u, _ in kio.read_vec_flt_scp(
+        os.path.join(work, "xvector_sre_combined.scp"))}
+    want_pool = {u + sfx for u in tree["pool_utts"]
+                 for sfx in ("",) + tuple(f"-{k}" for k in SRE16_AUG)}
+    if pool != want_pool:
+        fail(f"sre16 {name}: sre_combined holds {len(pool)} utterances, "
+             f"not the SRE speakers' {len(want_pool)} clean and augmented")
+    with open(os.path.join(work, "egs_info.json")) as f:
+        info = json.load(f)
+    formula = (info["num_train_frames"] * SRE16_NUM_REPEATS
+               // SRE16_FRAMES_PER_ITER + 1)
+    if info["num_archives"] != formula:
+        fail(f"sre16 {name}: {info['num_archives']} archives, get_egs.sh:120 "
+             f"gives {formula}")
+    print(f"sre16 {name}: " + "; ".join(
+        f"{v} EER {results[v]['eer']:.4f} minDCF {results[v]['min_dcf']:.4f}"
+        f" (" + ", ".join(f"{c} {m['eer']:.4f}" for c, m in
+                          results[v]["per_condition"].items()) + ")"
+        for v in ("out_of_domain", "adapted"))
+        + f"; {len(want)} trials; PLDA pool {len(pool)} utterances; "
+        f"{info['num_archives']} archives = {info['num_train_frames']} "
+        f"frames x {SRE16_NUM_REPEATS} // {SRE16_FRAMES_PER_ITER} + 1 "
+        f"[{tag}]")
+    return results
+
+
+def print_sre16_walls(name, work, splits, wall, tag):
+    with open(os.path.join(work, "stage_walls.json")) as f:
+        walls = json.load(f)
+    print(f"timing sre16 {name} stage_walls.json (s): " + ", ".join(
+        f"{k} {v}" for k, v in walls.items())
+        + f"; whole run {wall:.3f} s [{tag}]")
+    print(f"timing sre16 {name} extraction: " + "; ".join(
+        f"{split} {n} x-vectors in {dt:.3f} s = {n / dt:.1f} x-vectors/s"
+        for split, (n, dt) in splits.items()) + f" [{tag}]")
+    return walls
+
+
+def phase_sre16(CB, TK, kio, dev, seed, tag, tmp):
+    """``cli/run_sre16.py`` at full ``no_dropout`` width on the tree of
+    ``write_sre16_tree``: run 1 in-process (``main``, --extract-from-wav,
+    final combination, MUSAN and RIRS on disk: K2-K4 in training, K1 in
+    both extraction routes), counts zeroed just before and read just
+    after; run 2 ``--stage 7`` without --extract-from-wav in a child
+    process (the feature-ark route), which must leave the egs and the
+    model untouched.  Returns the K2-K4 launches by design of run 1 and
+    K1's layer launches by design over both runs."""
+    from xvector_tpu_torch.cli import run as RUN
+    from xvector_tpu_torch.cli import run_sre16
+
+    t_phase = t0 = time.perf_counter()
+    tree = write_sre16_tree(tmp, seed)
+    print(f"sre16: LDC tree in {time.perf_counter() - t0:.2f} s: SWBD "
+          f"cellular 1 {tree['n_calls']} two-channel shorten calls of "
+          f"{SRE16_SWBD_SPEAKERS} speakers, SRE pool {len(tree['pool_utts'])} "
+          f"utterances of {SRE16_POOL_SPEAKERS} speakers, SRE16 eval "
+          f"{SRE16_MODELS} models ({tree['enroll']} enrolment, "
+          f"{tree['tests']} test segments, {len(tree['trials'])} trials in "
+          f"the key), {2 * SRE16_MAJOR_SPEAKERS} majors at 16 kHz, MUSAN "
+          f"and RIRS on disk [{tag}]")
+    work = os.path.join(tmp, "sre16")
+    argv = ["--work-dir", work, "--swbd-cell1-root", tree["swbd"],
+            "--sre-data-dir", tree["pool"], "--sre16-eval-root", tree["eval"],
+            "--sre16-major-root", tree["major"], "--musan-dir",
+            tree["musan"], "--rirs-dir", tree["rirs"],
+            "--model", "no_dropout", "--num-epochs", str(SRE16_EPOCHS),
+            "--frames-per-iter", str(SRE16_FRAMES_PER_ITER),
+            "--num-repeats", str(SRE16_NUM_REPEATS),
+            "--min-chunk", "200", "--max-chunk", "400",
+            "--minibatch-size", "64", "--compute-dtype", "bfloat16",
+            "--do-final-combination", "--device", str(dev)]
+
+    # run 1: in-process, the waveform route
+    splits = {}
+    zero_counts(CB, TK)
+    restore = time_extraction(RUN, splits)
+    buf = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = run_sre16.main(argv + ["--extract-from-wav"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+        for line in buf.getvalue().splitlines():
+            print(f"sre16 run 1 | {line}")
+    routes, k1 = dict(CB.route_launches), dict(TK.route_launches)
+    check_sre16_run("run 1 (--extract-from-wav)", work, res, tree,
+                    "xvector_wav_", tag)
+    walls = print_sre16_walls("run 1", work, splits, wall, tag)
+    train = [r for r in read_metrics(os.path.join(work, "exp"))
+             if r.get("kind") == "train"]
+    steps = sum(int(r["minibatches"]) for r in train)
+    iter_s = sum(r["seconds"] for r in train)
+    print(f"timing sre16 run 1 stage 3 train: {len(train)} iterations, "
+          f"{steps} minibatch steps, loss {train[0]['loss']:.4f} -> "
+          f"{train[-1]['loss']:.4f}; {1e3 * walls['train'] / steps:.2f} ms "
+          f"per minibatch (stage wall), iterations alone "
+          f"{1e3 * iter_s / steps:.2f} ms [{tag}]")
+    want_routes = {f"{n}_{d}": 2 * steps if d == "sm90" else 0
+                   for n in ("fwd", "dw", "dx") for d in ("sm90", "sm80")}
+    print(f"sre16 run 1: K2/K3/K4 calls by design {routes} (expected "
+          f"{want_routes}); K1 layer launches by design {k1}")
+    if routes != want_routes or steps == 0:
+        fail("sre16 run 1: K2/K3/K4 did not run 6 sm90 calls per step")
+    if not k1["sm90"] == 4 * k1["sm80"] > 0:
+        fail("sre16 run 1: K1 did not run v4 on layer 0 and v5 on layers "
+             "1-4")
+    if not os.path.isdir(os.path.join(work, "exp", "model_combined")):
+        fail("sre16 run 1: no final combination")
+
+    # run 2: --stage 7 in a child process, the feature-ark route (it
+    # clears run 1's x-vectors: keep the test split's for a comparison)
+    wav_xv = dict(kio.read_vec_flt_scp(os.path.join(
+        work, "xvector_wav_sre16_test.scp")))
+    # egs_info.json is rewritten by every make_egs call: its contents
+    # must stay, the archives, features and checkpoints their files
+    kept = sorted(n for n in os.listdir(work)
+                  if (n.startswith("egs") or n.startswith("feats_train"))
+                  and n != "egs_info.json")
+    kept += [os.path.join("exp", d, "ckpt.pt")
+             for d in sorted(os.listdir(os.path.join(work, "exp")))
+             if os.path.exists(os.path.join(work, "exp", d, "ckpt.pt"))]
+    stamps = {n: os.stat(os.path.join(work, n)).st_mtime_ns for n in kept}
+    with open(os.path.join(work, "egs_info.json")) as f:
+        info = f.read()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", SRE16_CHILD, json.dumps(argv + ["--stage",
+                                                                "7"])],
+        cwd=REPO, capture_output=True, text=True, timeout=900)
+    wall2 = time.perf_counter() - t0
+    lines = out.stdout.splitlines()
+    for line in lines[:-1]:
+        print(f"sre16 run 2 | {line}")
+    if out.returncode != 0:
+        print(out.stderr[-4000:], file=sys.stderr)
+        fail(f"sre16 run 2: python -m xvector_tpu_torch.cli.run_sre16 "
+             f"--stage 7 exited {out.returncode}")
+    child = json.loads(lines[-1])
+    with open(os.path.join(work, "sre16_results.json")) as f:
+        res2 = json.load(f)
+    check_sre16_run("run 2 (--stage 7, feature arks)", work, res2, tree,
+                    "xvector_", tag)
+    print_sre16_walls("run 2", work, {k: tuple(v) for k, v in
+                                      child["splits"].items()}, wall2, tag)
+    moved = [n for n in kept
+             if os.stat(os.path.join(work, n)).st_mtime_ns != stamps[n]]
+    with open(os.path.join(work, "egs_info.json")) as f:
+        moved += [] if f.read() == info else ["egs_info.json's contents"]
+    print(f"sre16 run 2: K2/K3/K4 calls by design {child['conv']}; K1 layer "
+          f"launches by design {child['k1']}; of {len(kept)} egs, feature "
+          f"and checkpoint files {len(moved)} rewritten {moved}")
+    if "forcing re-run from stage 7" not in out.stdout or moved:
+        fail("sre16 run 2: --stage 7 did not keep the egs and the model")
+    if any(child["conv"].values()):
+        fail("sre16 run 2: --stage 7 trained again")
+    if not child["k1"]["sm90"] == 4 * child["k1"]["sm80"] > 0:
+        fail("sre16 run 2: K1 did not run v4 on layer 0 and v5 on layers "
+             "1-4")
+    ark_xv = dict(kio.read_vec_flt_scp(os.path.join(
+        work, "xvector_sre16_test.scp")))
+    cos = [cosine(wav_xv[u], ark_xv[u]) for u in wav_xv]
+    print(f"sre16: test x-vectors, waveform route (run 1) vs compressed "
+          f"feature arks (run 2): cosine median "
+          f"{np.median(cos):.6f}, min {min(cos):.6f} over {len(cos)}; phase "
+          f"wall {time.perf_counter() - t_phase:.1f} s [{tag}]")
+    return routes, {d: k1[d] + child["k1"][d] for d in ("sm90", "sm80")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3098,6 +3605,11 @@ def main(argv=None) -> int:
         recipe_routes, recipe_k1 = phase_recipe(CB, TK, TA, kio, dev,
                                                 args.seed, tag, tmp)
     print(f"recipe: phase 13 took {time.perf_counter() - t0:.1f} s")
+
+    # 14. the SRE16 recipe (cli/run_sre16.py) on a synthetic LDC tree
+    with tempfile.TemporaryDirectory() as tmp:
+        sre16_routes, sre16_k1 = phase_sre16(CB, TK, kio, dev, args.seed,
+                                             tag, tmp)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the device "
           f"check to here")
 
@@ -3134,6 +3646,10 @@ def main(argv=None) -> int:
             # ... and over the recipe's two extraction stages (phase 13)
             "recipe_launches": recipe_k1["sm90" if key == "rule"
                                          else "sm80"],
+            # ... and over run_sre16's two runs (phase 14: the waveform
+            # route and the feature-ark route)
+            "sre16_launches": sre16_k1["sm90" if key == "rule"
+                                       else "sm80"],
             **({"launches_by_design": main_routes} if key == "rule" else {}),
         })
     # K2-K4: the main path makes one k=5 and one k=7 call of each per
@@ -3161,6 +3677,8 @@ def main(argv=None) -> int:
             "cli_launches": cli_routes[route],
             # ... and over the recipe's training stage (phase 13)
             "recipe_launches": recipe_routes[route],
+            # ... and over run_sre16's training (phase 14, run 1)
+            "sre16_launches": sre16_routes[route],
             "max_abs_err": conv_errs[key],
             **mean,
             "bound_by": per_k[0]["bound_by"],

@@ -699,3 +699,117 @@ def test_tiny_recipe_on_card_matches_cpu(cuda_device, tmp_path):
     for utt in want:
         err = np.abs(got[utt] - want[utt]).max() / np.abs(want[utt]).max()
         assert err <= 1e-3, (utt, err)
+
+
+def _sre16_tree(root, rng):
+    """A small LDC tree for run_sre16 (tests/test_torch_run_sre16.py's
+    layout): SWBD cellular 1 calls of 10 speakers (two-channel PCM
+    SPHERE), a pre-built SRE data dir of 10 speakers, the SRE16 eval tree
+    of 4 models in tgl and yue with its evaluation key beside it, and 8
+    unlabeled majors."""
+    def sph(x):
+        x = x[:, None] if x.ndim == 1 else x
+        head = (f"NIST_1A\n   1024\nsample_count -i {x.shape[0]}\n"
+                f"channel_count -i {x.shape[1]}\nsample_rate -i 8000\n"
+                "sample_n_bytes -i 2\nsample_byte_format -s2 10\n"
+                "sample_coding -s3 pcm\nend_head\n")
+        return head.encode().ljust(1024, b" ") + x.astype(">i2").tobytes()
+
+    def wave(spk, secs=3.0):
+        t = np.arange(int(8000 * secs)) / 8000
+        return np.clip(2500 * np.sin(2 * np.pi * (300 + spk * 137 % 2800) * t)
+                       + 1500 * np.sin(2 * np.pi * (400 + spk * 211 % 2500)
+                                       * t + 1.0)
+                       + 150 * rng.randn(len(t)), -32000, 32000)
+
+    def put(rel, data):
+        path = root / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        (path.write_bytes if isinstance(data, bytes) else path.write_text)(
+            data)
+        return path
+
+    calls = []
+    for c in range(5):
+        for rep in range(3):
+            put(f"swbd/data/audio/sw_4{c}{rep:02d}.sph", sph(np.stack(
+                [wave(2 * c), wave(2 * c + 1)], 1)))
+            calls.append(f"4{c}{rep:02d},{1000 + 2 * c},{1001 + 2 * c},M,F")
+    put("swbd/doc/swb_callstats.tbl", "\n".join(calls) + "\n")
+    u2s, scp = [], []
+    for s in range(10):
+        for u in range(3):
+            path = put(f"sre/audio/sre{s}_{u}.sph", sph(wave(200 + s)))
+            u2s.append(f"sre{s}_{u} srespk{s}")
+            scp.append(f"sre{s}_{u} {path}")
+    put("sre/utt2spk", "\n".join(u2s) + "\n")
+    put("sre/wav.scp", "\n".join(scp) + "\n")
+    enroll, subj, segcall, langs, trials = (
+        ["modelid\tsegmentid"], ["segmentid\tsubjectid"],
+        ["segmentid callid"], [], ["modelid segmentid side targettype"])
+    for m in range(4):
+        for u in range(2):
+            put(f"eval/data/enrollment/en{m}{u}.sph", sph(wave(100 + m)))
+            enroll.append(f"model{m}\ten{m}{u}")
+            put(f"eval/data/test/te{m}{u}.sph", sph(wave(100 + m, 1.7)))
+            subj.append(f"te{m}{u}\tsubj{m}")
+            segcall.append(f"te{m}{u} call{m}{u}")
+            langs.append(f"call{m}{u} {('tgl', 'yue')[m % 2]}")
+            trials += [f"model{k} te{m}{u} a "
+                       + ("target" if k == m else "nontarget")
+                       for k in range(4)]
+        put(f"major/data/unlabeled/major/mj{m}.sph", sph(wave(100 + m)))
+        put(f"major/data/unlabeled/major/mk{m}.sph", sph(wave(300 + m)))
+    put("eval/docs/sre16_eval_enrollment.tsv", "\n".join(enroll) + "\n")
+    put("eval/docs/sre16_eval_segment_key.tsv", "\n".join(subj) + "\n")
+    key = "download/sre16_evaluation_key"
+    put(f"{key}/docs/sre16_eval_segment_key.tsv", "\n".join(segcall) + "\n")
+    put(f"{key}/metadata/calls.tsv", "\n".join(langs) + "\n")
+    put(f"{key}/docs/sre16_eval_trial_key.tsv", "\n".join(trials) + "\n")
+
+
+@pytest.mark.cuda
+def test_run_sre16_tiny_on_card_takes_sm90_designs(cuda_device, tmp_path):
+    """``run_sre16.main`` at ``tiny`` width in bf16 on the card: training
+    through K2-K4 (tiny's one wide layer: one call of each per step, all
+    "sm90"), extraction through K1 (v4 on layer 0, v5 on layers 1-4) in
+    the waveform route and, after ``--stage 7``, the feature-ark route;
+    both variants scored per language."""
+    import json
+    from xvector_tpu_torch.cli import run_sre16
+
+    _sre16_tree(tmp_path / "ldc", np.random.RandomState(0))
+    work = tmp_path / "exp"
+    ldc = tmp_path / "ldc"
+    argv = ["--work-dir", str(work), "--device", "cuda",
+            "--swbd-cell1-root", str(ldc / "swbd"),
+            "--sre-data-dir", str(ldc / "sre"),
+            "--sre16-eval-root", str(ldc / "eval"),
+            "--sre16-major-root", str(ldc / "major"),
+            "--model", "tiny", "--num-epochs", "1",
+            "--frames-per-iter", "25000", "--min-chunk", "40",
+            "--max-chunk", "80", "--min-utt-frames", "39",
+            "--min-spk-utts", "2", "--minibatch-size", "8",
+            "--num-repeats", "4", "--compute-dtype", "bfloat16",
+            "--lda-dim", "8"]
+    for stage, extra in ((None, ["--extract-from-wav"]), (7, [])):
+        routes, k1 = dict(CB.route_launches), dict(TK.route_launches)
+        res = run_sre16.main(argv + extra + (["--stage", "7"] if stage
+                                             else []))
+        conv = _routes_delta(routes)
+        k1 = {d: TK.route_launches[d] - k1[d] for d in k1}
+        assert set(res) == {"out_of_domain", "adapted"}
+        for r in res.values():
+            assert r["num_trials"] == 32
+            assert set(r["per_condition"]) == {"tgl", "yue"}
+            assert np.isfinite(r["scores"]).all()
+        assert k1["sm90"] == 4 * k1["sm80"] > 0
+        if stage is None:
+            with open(work / "exp" / "metrics.jsonl") as f:
+                steps = sum(int(r["minibatches"]) for r in map(json.loads, f)
+                            if r["kind"] == "train")
+            assert steps > 0 and conv == {"fwd_sm90": steps,
+                                          "dw_sm90": steps,
+                                          "dx_sm90": steps}
+        else:
+            assert not any(conv.values())      # the model is kept

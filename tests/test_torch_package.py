@@ -16,7 +16,7 @@ import torch
 from xvector_tpu.models import tdnn as jt
 from xvector_tpu_torch.backend import plda as BP
 from xvector_tpu_torch.backend import plda_device as PD
-from xvector_tpu_torch.cli import extract_embedding, get_egs
+from xvector_tpu_torch.cli import extract_embedding, get_egs, run_sre16
 from xvector_tpu_torch.cli import run as RUN
 from xvector_tpu_torch.extract import extractor as TE
 from xvector_tpu_torch.models import tdnn as tt
@@ -83,7 +83,8 @@ def test_no_jax_import_in_source(path):
                                    "score_trials_device",
                                    "train_plda_device", "Recipe",
                                    "import_reference_h5", "cli_h5",
-                                   "cli_run", "cli_get_egs"])
+                                   "cli_run", "cli_get_egs",
+                                   "cli_run_sre16"])
 def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
     cfg = tt.MODEL_ZOO["tiny"]
     tp, ts = tt.init_params(torch.Generator().manual_seed(0), cfg, 3,
@@ -132,6 +133,9 @@ def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
             "--synthetic-utts=2", "--model=tiny"]),
         "cli_get_egs": lambda: get_egs.main([str(tmp_path / "data"),
                                              str(tmp_path / "egs")]),
+        "cli_run_sre16": lambda: run_sre16.main([
+            f"--work-dir={tmp_path / 'sre16'}",
+            f"--sre16-eval-root={tmp_path / 'eval'}", "--model=tiny"]),
         "cli_h5": lambda: extract_embedding.main([
             f"--reference-h5={tmp_path / 'model.h5'}", "--model=tiny",
             "--num-targets=3", f"--feats-rspecifier=ark:{tmp_path}/f.ark",
@@ -154,3 +158,32 @@ def test_params_round_trip_exact():
                     jax.tree.leaves((jp, js))):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+# modules whose every top-level function and class the port carries over
+# (the rest leave out TPU-only or multi-process pieces: ROADMAP A10c)
+COMPLETE = ["backend.metrics", "backend.plda", "backend.plda_device",
+            "cli.eval_dnn", "cli.extract_embedding", "cli.get_egs",
+            "cli.run", "cli.run_sre16", "cli.train_dnn", "data.allocator",
+            "data.archives", "data.corpora", "data.reference_tar",
+            "extract.extractor", "io.datadir", "io.shorten", "io.wav",
+            "ops.augment", "ops.features", "train.combine",
+            "train.preemption", "train.schedules", "train.trainer",
+            "utils.export", "utils.kaldi_conf", "utils.scores"]
+
+
+@pytest.mark.parametrize("module", COMPLETE)
+def test_module_has_every_name_of_its_jax_counterpart(module):
+    """The port's module holds every top-level function and class of the
+    JAX package's module of the same path, and exports its ``__all__``."""
+    import importlib
+    import inspect
+    jm = importlib.import_module(f"xvector_tpu.{module}")
+    pm = importlib.import_module(f"xvector_tpu_torch.{module}")
+    want = {n for n, f in vars(jm).items()
+            if (inspect.isfunction(f) or inspect.isclass(f))
+            and f.__module__ == jm.__name__}
+    assert want, module
+    assert not want - set(vars(pm)), sorted(want - set(vars(pm)))
+    assert set(getattr(jm, "__all__", ())) <= set(getattr(pm, "__all__",
+                                                          vars(pm)))
