@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's extraction, training, wave, scoring, recipe
-and SRE16 recipe paths on one GPU.
+"""Drive the PyTorch port's extraction, training, wave, scoring, recipe,
+SRE16 recipe and multi-rank paths on one GPU.
 
 Run from the repository root (one card, no arguments needed):
 
@@ -191,13 +191,49 @@ Phases; any failure raises and the exit code is non-zero:
    lines: ``stage_walls.json`` of both runs, x-vectors/s per extracted
    split, the training stage's ms per minibatch, each run's wall time.
 
+15. the multi-rank paths at full width, several processes sharing the
+   card through gloo (each makes the card current before its first
+   kernel; NCCL refuses two ranks on one device).  Part 1:
+   ``parallel/mc_harness`` with 2 ranks, the ``baseline`` preset
+   (``no_dropout``, dense softmax over 7,185 classes, bf16, Adam, blocks
+   of 16), 2 archives of 16 full 64x304 minibatches (32 rows per rank)
+   and one ragged, a valid archive of 2, 2 epochs, final combination: a
+   run stopped by the deterministic ``STOP_AFTER`` check and resumed by
+   fresh processes must equal a straight run bit for bit (params, the
+   combined model, x-vectors), both ranks the same bits, a falling loss,
+   K2-K4 twice per minibatch step on every rank, all "sm90"; the
+   utterance-sharded extraction (bf16, K1) equal to one process's fused
+   extraction of the same shards from the same ``model_final``, and
+   rank 0's shard within phase 4's cosine bound of the unfused stack;
+   ``model_final`` restores in one process; and a one-process run of the
+   same archives for the step time.  Part 2: one SGD step from carried weights, 2 ranks
+   against 1 on the same global batch: f32 (plain convs) params and BN
+   state within 1e-6, loss within 2e-5; bf16 (K2-K4) loss within 1e-2
+   relative and per-parameter update cosine >= 0.98.  Part 3:
+   ``sre16_full`` on 3 ranks (data 1 x model 3, 2,395 columns each): an
+   f32 SGD step against one process's dense softmax (loss and params
+   1e-5), two bf16 blocks of 16 with a falling loss, the trunk the same
+   bits on every rank, K2-K4 counted, and its checkpoint restored in one
+   process with the head the shards side by side.  Part 4:
+   ``seq_sharded_xvector`` on 2 ranks, one 20,000-frame utterance (valid
+   19,995) against one process's unchunked ``extract_xvector`` (1e-4
+   normalised).  Part 5: part 2's f32 step under NCCL, one card per rank,
+   where there are two cards (else one line says why it did not run).
+   Timing lines: ms per minibatch step and audio-s/s, 2 ranks against 1;
+   the flat gradient all-reduce and its share of the step; checkpoint
+   saves with and without the head's gather; process start;
+   ``seq_sharded_xvector``; K2-K4 at the 32x304 a rank gives them, each
+   first held against its plain version at that shape.
+
 The line before the last is ``{"kernels": [...]}`` (K1 and K2-K4 in the
 main path's designs, and rows for the "sm80" designs with their main-path
 launch counts, each with its launches over the CLI phase as
 ``cli_launches``, over the recipe's stages (training for K2-K4, both
-extraction stages for K1) as ``recipe_launches`` and over run_sre16's
+extraction stages for K1) as ``recipe_launches``, over run_sre16's
 runs (training for K2-K4, both runs' extraction for K1) as
-``sre16_launches``, and K1's over the wave phase as ``wave_launches``);
+``sre16_launches`` and over phase 15's multi-rank run (its straight run's
+training for K2-K4, its sharded extraction for K1, summed over the ranks)
+as ``mc_launches``, and K1's over the wave phase as ``wave_launches``);
 the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full f32
 (``torch.backends.cuda.matmul.allow_tf32 = False``) so the plain versions
@@ -3514,6 +3550,584 @@ def phase_sre16(CB, TK, kio, dev, seed, tag, tmp):
     return routes, {d: k1[d] + child["k1"][d] for d in ("sm90", "sm80")}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the multi-rank paths, several ranks on the one card
+# ---------------------------------------------------------------------------
+
+MC_RANKS = 2                 # gloo ranks sharing the card (parts 1, 2, 4)
+MC_SHARDS = 3                # sre16_full's model axis: 7,185 = 3 x 2,395
+MC_ARCHIVES = 2              # part 1: archives of MC_FULL full minibatches
+MC_FULL = 16                 # ... and one ragged each
+MC_FRAMES = 300              # part 1's extraction corpus: 50 utterances
+MC_LR = 1e-3
+MC_TIMEOUT = 300             # seconds per group of ranks
+MC_STEP_BOUND = 1e-6         # f32 step, 2 ranks vs 1: params and BN state
+MC_STEP_LOSS_BOUND = 2e-5    # ... and the loss (tests/test_scaling.py:84-93)
+MC_SHARDED_BOUND = 1e-5      # sharded head vs the dense one, f32
+SEQ_FRAMES, SEQ_VALID = 20000, 19995   # beyond the reference's 10,000 chunk
+SEQ_BOUND = 1e-4             # tests/test_seqshard.py:32
+MC_CHILD = r"""
+import sys
+import chip_smoke
+chip_smoke.mc_worker(sys.argv[1:])
+"""
+
+
+def mc_step_cfg(TR, seed, dtype, **kw):
+    """One SGD update from carried weights: the full-width ``no_dropout``
+    step of part 2 (and, with ``head``, part 3)."""
+    return TR.TrainConfig(model="no_dropout", num_targets=TRAIN_CLASSES,
+                          compute_dtype=dtype, block_size=16,
+                          optimizer="sgd", momentum=0.5, random_seed=seed,
+                          **kw)
+
+
+def mc_worker(argv):
+    """One rank of phase 15's parts 2-5, in a child process of
+    ``MC_CHILD``: argv part rank world backend init work seed device
+    (``cuda:0`` for every gloo rank, ``cuda:<rank>`` under NCCL).  Part
+    ``parity`` (2 and 4, and 5 with NCCL): one f32 and one bf16 SGD step
+    on the rank's rows of the carried batch, then the sequence-sharded
+    x-vector; part ``sharded`` (3): ``sre16_full`` with the head split
+    over every rank.  Results go to ``<work>/<part>_<rank>.pt``."""
+    import torch.distributed as dist
+
+    from xvector_tpu_torch.models import tdnn as tt
+    from xvector_tpu_torch.models.convert import (gather_params, tree_leaves,
+                                                  tree_map)
+    from xvector_tpu_torch.ops import conv_bwd as CB
+    from xvector_tpu_torch.ops import tdnn_kernel as TK
+    from xvector_tpu_torch.parallel import launch, seqshard
+    from xvector_tpu_torch.parallel import mc_harness
+    from xvector_tpu_torch.parallel import mesh as meshlib
+    from xvector_tpu_torch.presets import BENCHMARK_CONFIGS
+    from xvector_tpu_torch.train import checkpoints as C
+    from xvector_tpu_torch.train import trainer as TR
+
+    part, rank, world, backend, init, work, seed, device = (
+        argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4], argv[5],
+        int(argv[6]), argv[7])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = meshlib.init_distributed(backend, init, world, rank, device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    out = {"start_s": time.time() - float(os.environ["XVEC_SPAWN_TIME"]),
+           "device": str(dev)}
+    inputs = torch.load(os.path.join(work, f"{part}_inputs.pt"),
+                        weights_only=False)
+    x, y = inputs["x"], inputs["y"]
+
+    def trunk_sha(params):
+        return mc_harness.tree_sha({k: v for k, v in params.items()
+                                    if k != "output"})
+
+    if part == "parity":
+        mesh = meshlib.make_mesh(data=world, model=1, device=dev)
+        lo, hi = launch.host_local_batch_slice(TRAIN_B, mesh)
+        for dtype in (("float32",) if backend == "nccl"
+                      else ("float32", "bfloat16")):
+            tr = TR.Trainer(mc_step_cfg(TR, seed, dtype),
+                            os.path.join(work, f"{part}_{dtype}"), mesh=mesh)
+            tr._place_all(*inputs["weights"])
+            zero_counts(CB, TK)
+            st = tr.train_one_iteration(0, iter([(x[lo:hi], y[lo:hi],
+                                                  TRAIN_T)]),
+                                        MC_LR, 0.0, 1.0)
+            out[dtype] = {
+                "loss": st["loss"], "sha": mc_harness.tree_sha(tr.params),
+                "routes": dict(CB.route_launches),
+                "params": ([p.detach().cpu() for p in tree_leaves(tr.params)]
+                           + [s.cpu() for s in tree_leaves(tr.state)]
+                           if rank == 0 else None)}
+        # the step's flat gradient all-reduce on this backend
+        grads = [torch.ones_like(p.detach()) for p in tree_leaves(tr.params)]
+        meshlib.all_reduce_flat(grads, mesh.data_group)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            meshlib.all_reduce_flat(grads, mesh.data_group)
+        sync()
+        out["allreduce_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        out["floats"] = sum(g.numel() for g in grads)
+        if backend != "nccl":
+            cfg = tt.MODEL_ZOO["no_dropout"]
+            p, s = (tree_map(lambda t: t.to(dev), tree)
+                    for tree in inputs["seq_weights"])
+            xs = inputs["seq_x"]
+            xv = seqshard.seq_sharded_xvector(cfg, p, s, xs, mesh,
+                                              valid_len=SEQ_VALID)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                seqshard.seq_sharded_xvector(cfg, p, s, xs, mesh,
+                                             valid_len=SEQ_VALID)
+            sync()
+            out["seq"] = xv.cpu()
+            out["seq_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    else:                          # "sharded": data 1 x model world
+        mesh = meshlib.make_mesh(data=1, model=world, device=dev)
+        tr = TR.Trainer(mc_step_cfg(TR, seed, "float32",
+                                    head="sharded_softmax"),
+                        os.path.join(work, "sharded_f32"), mesh=mesh)
+        tr._place_all(*inputs["weights"])
+        st = tr.train_one_iteration(0, iter([(x, y, TRAIN_T)]), MC_LR, 0.0,
+                                    1.0)
+        whole = gather_params(tr.params, mesh)
+        out["f32"] = {"loss": st["loss"], "trunk": trunk_sha(tr.params),
+                      "params": ([t.detach().cpu()
+                                  for t in tree_leaves(whole)]
+                                 if rank == 0 else None)}
+        cfg = replace(BENCHMARK_CONFIGS["sre16_full"], random_seed=seed)
+        tr = TR.Trainer(cfg, os.path.join(work, "sharded_bf16"), mesh=mesh)
+        zero_counts(CB, TK)
+        losses, steps = [], 0
+        t0 = time.perf_counter()
+        for it in range(2):
+            st = tr.train_one_iteration(it, iter(inputs["block"]), MC_LR,
+                                        0.0, 1.0)
+            losses.append(st["loss"])
+            steps += int(st["minibatches"])
+        sync()
+        secs = time.perf_counter() - t0
+        routes = dict(CB.route_launches)
+        t0 = time.perf_counter()
+        C.save_iteration(tr, 1)
+        out["bf16"] = {"losses": losses, "steps": steps, "routes": routes,
+                       "ms_per_step": secs / steps * 1e3,
+                       "save_ms": (time.perf_counter() - t0) * 1e3,
+                       "trunk": trunk_sha(tr.params),
+                       "head": {k: v.detach().cpu()
+                                for k, v in tr.params["output"].items()}}
+    torch.save(out, os.path.join(work, f"{part}_{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def mc_spawn(part, world, backend, work, seed, inputs, dev):
+    """Run ``mc_worker`` on ``world`` ranks, all on ``dev`` (gloo) or one
+    card each (NCCL), and return their results."""
+    from xvector_tpu_torch.parallel import mc_harness
+    os.makedirs(work, exist_ok=True)
+    torch.save(inputs, os.path.join(work, f"{part}_inputs.pt"))
+    script = os.path.join(work, "mc_child.py")
+    with open(script, "w") as f:
+        f.write(MC_CHILD)
+    init = "file://" + os.path.join(work, f"rdv_{part}_{backend}")
+    mc_harness.spawn(script, [
+        [part, r, world, backend, init, work, seed,
+         f"cuda:{r}" if backend == "nccl" else str(dev)]
+        for r in range(world)], timeout=MC_TIMEOUT)
+    return [torch.load(os.path.join(work, f"{part}_{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def mc_close(got, want, bound):
+    """(every pair within ``bound`` absolute + ``bound`` relative, as
+    ``tests/test_scaling.py`` holds them; the largest |difference|)."""
+    ok = all(torch.allclose(a, b, rtol=bound, atol=bound)
+             for a, b in zip(got, want))
+    return ok, max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
+def mc_compare(TR, dev, cfg, weights, batch, work):
+    """One process's SGD update from the carried weights on the whole
+    batch: (loss, params and BN state on the CPU)."""
+    from xvector_tpu_torch.models.convert import tree_leaves
+    tr = TR.Trainer(cfg, work, device=dev)
+    tr._place_all(*weights)
+    st = tr.train_one_iteration(0, iter([batch]), MC_LR, 0.0, 1.0)
+    return st["loss"], ([p.detach().cpu() for p in tree_leaves(tr.params)]
+                        + [s.cpu() for s in tree_leaves(tr.state)])
+
+
+def mc_conv_timing(CB, dev, seed, tag):
+    """K2, K3 and K4 (their "sm90" design) at the 32 rows a rank of part 1
+    gives them: each held against its plain version on the same inputs
+    (``KERNEL_BOUND``, ``DW_BOUND`` for K3's f32 output), then ms per call
+    beside the bound, the plain version and the library call."""
+    b = TRAIN_B // MC_RANKS
+    for k in (5, 7):
+        x, w, g = conv_inputs(b, TRAIN_T, 512, 512, k, dev, seed + k)
+        left = (k - 1) // 2
+        xc = x.transpose(1, 2).contiguous()
+        gc = g.transpose(1, 2).contiguous()
+        wc = w.permute(2, 1, 0).contiguous()
+
+        def lib_bwd(mask):
+            return torch.ops.aten.convolution_backward(
+                gc, xc, wc, None, [1], [left], [1], False, [0], 1, mask)
+
+        for name, kern, plain, lib in (
+                ("K2", lambda: CB.conv_fwd(x, w, 1),
+                 lambda: CB.conv_fwd_reference(x, w, 1),
+                 lambda: F.conv1d(xc, wc, padding=left)),
+                ("K3", lambda: CB.conv_dw(x, g, k, 1),
+                 lambda: CB.conv_dw_reference(x, g, k, 1),
+                 lambda: lib_bwd([False, True, False])),
+                ("K4", lambda: CB.conv_dx(g, w, 1),
+                 lambda: CB.conv_dx_reference(g, w, 1),
+                 lambda: lib_bwd([True, False, False]))):
+            which = {"K2": "fwd", "K3": "dw", "K4": "dx"}[name]
+            before = CB.route_launches[f"{which}_sm90"]
+            got = kern()
+            torch.cuda.synchronize()
+            if CB.route_launches[f"{which}_sm90"] - before != 1:
+                fail(f"mc conv {name} k={k} {b}x{TRAIN_T}: not on sm90")
+            want = plain()
+            label = f"mc conv {name} sm90 k={k} {b}x{TRAIN_T} 512->512"
+            if (got.shape != want.shape or got.dtype != want.dtype
+                    or not torch.isfinite(got).all()):
+                fail(f"{label}: {tuple(got.shape)} {got.dtype} or "
+                     f"non-finite, expected {tuple(want.shape)} "
+                     f"{want.dtype}")
+            limit = DW_BOUND if name == "K3" else KERNEL_BOUND
+            abs_err, err = norm_err(got, want)
+            print(f"{label}: max_abs_err={abs_err:.6g} normalised="
+                  f"{err:.3g} (bound {limit})")
+            if err > limit:
+                fail(f"{label} disagrees with its plain version")
+            bms, by = bound(*conv_work(b, TRAIN_T, 512, 512, k, which))
+            ms = cuda_ms(kern, 20, 3)
+            print(f"timing mc conv {name} sm90 k={k} {b}x{TRAIN_T} "
+                  f"512->512: {ms:.4f} ms/call, bound {bms:.4f} ms by {by} "
+                  f"({bms / ms:.1%}), plain {cuda_ms(plain, 10, 2):.4f} ms, "
+                  f"library {cuda_ms(lib, 20, 3):.4f} ms [{tag}]")
+
+
+def mc_part1(TA, dev, seed, tag, tmp):
+    """Part 1: ``parallel/mc_harness`` at full ``no_dropout`` width, two
+    gloo ranks on the card.  Returns the straight run's launch counts,
+    summed over its ranks."""
+    from xvector_tpu_torch.extract.extractor import (ExtractorConfig,
+                                                     XvectorExtractor)
+    from xvector_tpu_torch.io import kaldi_ark as kio
+    from xvector_tpu_torch.parallel import mc_harness as MH
+    from xvector_tpu_torch.presets import BENCHMARK_CONFIGS
+    from xvector_tpu_torch.train import checkpoints as C
+    from xvector_tpu_torch.train import trainer as TR
+
+    base = BENCHMARK_CONFIGS["baseline"]       # no_dropout, dense softmax
+    fields = {k: getattr(base, k) for k in (
+        "model", "head", "compute_dtype", "optimizer", "block_size")}
+    spec = {"train": dict(fields, num_targets=TRAIN_CLASSES,
+                          random_seed=seed),
+            "global_mb": TRAIN_B, "frames": MC_FRAMES, "params_flat": False,
+            "extract": {"compute_dtype": "bfloat16", "use_fused": True,
+                        "batch_size": 32, "min_chunk": 25,
+                        "max_chunk": 10000}}
+    runs = {}
+    for name in ("interrupted", "straight", "single"):
+        work = os.path.join(tmp, f"mc_{name}")
+        os.makedirs(work)
+        for i in range(MC_ARCHIVES):     # the same archives in every run
+            write_train_archive(TA, os.path.join(work, f"egs.{i}.xta"),
+                                seed + 100 + i, 23, full=MC_FULL)
+        valid = os.path.join(work, "valid_egs.xta")
+        write_train_archive(TA, valid, seed + 110, 23, full=2, ragged=False)
+        run_spec = dict(spec, valid=valid, timing=name == "straight")
+        t0 = time.perf_counter()
+        if name == "single":
+            runs[name] = MH.run_single_controller(
+                work, device=dev,
+                spec=dict(run_spec, num_archives=MC_ARCHIVES,
+                          final_combine=True))
+        else:
+            runs[name] = MH.run_group(
+                work, interrupt=name == "interrupted", n_procs=MC_RANKS,
+                num_archives=MC_ARCHIVES, final_combine=True,
+                device=str(dev), backend="gloo", timeout=MC_TIMEOUT,
+                spec=run_spec)
+        runs[name]["wall"] = time.perf_counter() - t0
+        runs[name]["work"] = work
+    a, b = runs["interrupted"], runs["straight"]
+    print(f"mc part 1 (mc_harness, {MC_RANKS} gloo ranks on {dev}, "
+          f"no_dropout {TRAIN_CLASSES} classes bf16 Adam, {MC_ARCHIVES} "
+          f"archives of {MC_FULL}+1 {TRAIN_B}x{TRAIN_T} minibatches, 2 "
+          f"epochs, combination): interrupted after {MH.STOP_AFTER} "
+          f"iterations and resumed {a['wall']:.1f} s, straight "
+          f"{b['wall']:.1f} s, one process {runs['single']['wall']:.1f} s")
+    if (a["params_sha"], a["state_sha"]) != (b["params_sha"], b["state_sha"]):
+        fail("mc part 1: the interrupted run's model differs from the "
+             "straight run's")
+    if a["final_target"] != "model_combined" or a["final_iterations"] != 4:
+        fail(f"mc part 1: {a['final_iterations']} iterations, model_final "
+             f"-> {a['final_target']}")
+    if set(a["xv"]) != set(b["xv"]) or any(
+            not np.array_equal(v, b["xv"][u]) for u, v in a["xv"].items()):
+        fail("mc part 1: the interrupted run's x-vectors differ")
+    print(f"mc part 1: interrupted == straight bit for bit (params and BN "
+          f"state sha256 {a['params_sha'][:16]}.., the combined model, "
+          f"{len(a['xv'])} x-vectors); both ranks the same bits")
+    recs = read_metrics(os.path.join(b["work"], "exp"))
+    train = sorted((r for r in recs if r.get("kind") == "train"),
+                   key=lambda r: r["iteration"])
+    if not (all(math.isfinite(r["loss"]) for r in train)
+            and train[-1]["loss"] < train[0]["loss"]):
+        fail(f"mc part 1: the loss did not fall: {[r['loss'] for r in train]}")
+    # kernels: every rank, every step, on sm90 (the workers are fresh
+    # processes: their counts start at 0 with the run and are read at its
+    # end); 2 wide layers per step
+    steps = int(sum(r["minibatches"] for r in train))
+    want = {f"{n}_{d}": 2 * steps if d == "sm90" else 0
+            for n in ("fwd", "dw", "dx") for d in ("sm90", "sm80")}
+    launches = {"conv": {}, "k1": {}}
+    for run in (a, b):
+        ranks = run["ranks"]["phase2"]
+        if run is a:
+            per_rank = [{k: v + p1["launches"]["conv"][k]
+                         for k, v in p2["launches"]["conv"].items()}
+                        for p1, p2 in zip(run["ranks"]["phase1"], ranks)]
+        else:
+            per_rank = [r["launches"]["conv"] for r in ranks]
+        for r, got in enumerate(per_rank):
+            if got != want:
+                fail(f"mc part 1 rank {r}: K2-K4 calls {got}, expected "
+                     f"{want} (2 wide layers x {steps:g} steps, all sm90)")
+    for r in b["ranks"]["phase2"]:
+        for key in ("conv", "k1"):
+            for k, v in r["launches"][key].items():
+                launches[key][k] = launches[key].get(k, 0) + v
+    print(f"mc part 1: K2-K4 {want} per rank in each run; straight run "
+          f"over its ranks {launches}; loss "
+          + " -> ".join(f"{r['loss']:.4f}" for r in train))
+    # the utterance shards against one process's fused extraction of the
+    # same shards from the same model_final
+    final = os.path.realpath(os.path.join(a["work"], "exp", "model_final"))
+    ckpt = torch.load(os.path.join(final, C.CKPT), map_location=dev,
+                      weights_only=True)
+    utt2src = MH._utt2src(a["work"])
+    ex = XvectorExtractor(MH._model_cfg("no_dropout"), ckpt["params"],
+                          ckpt["state"], ExtractorConfig(**spec["extract"]),
+                          device=dev)
+    for shard in a["xv_shards"]:
+        got = dict(ex.extract_iter((u, kio.read_mat("%s:%d" % utt2src[u]))
+                                   for u in shard))
+        if any(not np.array_equal(np.asarray(got[u], np.float32),
+                                  a["xv"][u]) for u in shard):
+            fail("mc part 1: the sharded extraction differs from one "
+                 "process's")
+    # K1 on the ranks held against the plain stack: rank 0's shard again
+    # without the fused kernel, at phase 4's fused vs unfused bound
+    shard = a["xv_shards"][0]
+    plain_ex = XvectorExtractor(
+        MH._model_cfg("no_dropout"), ckpt["params"], ckpt["state"],
+        ExtractorConfig(**dict(spec["extract"], use_fused=False)),
+        device=dev)
+    plain = dict(plain_ex.extract_iter(
+        (u, kio.read_mat("%s:%d" % utt2src[u])) for u in shard))
+    cos = min(cosine(a["xv"][u], np.asarray(plain[u], np.float32))
+              for u in shard)
+    print(f"mc part 1: rank 0's {len(shard)} fused x-vectors vs the "
+          f"unfused bf16 stack min cosine {cos:.6f} (bound {COSINE_BOUND})")
+    if cos < COSINE_BOUND:
+        fail("mc part 1: the ranks' fused x-vectors disagree with the "
+             "unfused stack")
+    tr = TR.Trainer(TR.TrainConfig(**spec["train"]),
+                    os.path.join(tmp, "mc_restore"), device=dev)
+    C.restore_into(tr, final)
+    if MH.tree_sha(tr.params) != a["params_sha"]:
+        fail("mc part 1: model_final restored in one process differs")
+    print(f"mc part 1: utterance shards {a['shard_sizes']} equal one "
+          f"process's fused extraction bit for bit; model_final restores "
+          f"in one process")
+    # timings: ms per minibatch step over the iterations, 2 ranks vs 1
+    single = read_metrics(os.path.join(runs["single"]["work"], "exp"))
+    per = {}
+    for name, rs in (("2 ranks", recs), ("1 rank", single)):
+        it = [r for r in rs if r.get("kind") == "train"]
+        n = sum(r["minibatches"] for r in it)
+        per[name] = sum(r["seconds"] for r in it) / n * 1e3
+    audio = TRAIN_B * TRAIN_T / FRAMES_PER_SECOND
+    tim = b["ranks"]["phase2"][0]["timing"]
+    print(f"timing mc step: {per['2 ranks']:.2f} ms per global minibatch "
+          f"with {MC_RANKS} ranks on one card ({audio / per['2 ranks'] * 1e3:.1f} "
+          f"audio-s/s) vs {per['1 rank']:.2f} ms with one rank "
+          f"({audio / per['1 rank'] * 1e3:.1f} audio-s/s), iterations' "
+          f"seconds over their minibatches [{tag}]")
+    print(f"timing mc gradient all-reduce (gloo, {MC_RANKS} ranks, "
+          f"{tim['grad_floats']:,} floats = {tim['grad_floats'] * 4 / 1e6:.1f} "
+          f"MB): {tim['grad_allreduce_ms']:.2f} ms = "
+          f"{tim['grad_allreduce_ms'] / per['2 ranks']:.1%} of the step; "
+          f"checkpoint save (barriers, rank 0 writes) "
+          f"{tim['save_ms']:.1f} ms; process start "
+          + ", ".join(f"{r['start_s']:.2f}" for r in b["ranks"]["phase2"])
+          + f" s [{tag}]")
+    return launches
+
+
+def mc_nccl(TR, dev, seed, tag, tmp, batch):
+    """Part 5: part 2's f32 step under NCCL, one card per rank, where the
+    machine has a card for each rank; else one line says why not.
+    ``batch`` is part 2's (x, y, carried weights)."""
+    x, y, weights = batch
+    cards = torch.cuda.device_count()
+    if cards < MC_RANKS:
+        print(f"mc part 5: NCCL not run: {cards} card(s) here and NCCL "
+              f"takes one card per rank ({MC_RANKS} ranks)")
+        return
+    work = os.path.join(tmp, "mc_nccl")
+    res = mc_spawn("parity", MC_RANKS, "nccl", work, seed,
+                   {"x": x, "y": y, "weights": weights}, dev)
+    loss1, one = mc_compare(TR, dev, mc_step_cfg(TR, seed, "float32"),
+                            weights, (x, y, TRAIN_T),
+                            os.path.join(work, "one"))
+    ok, err = mc_close(res[0]["float32"]["params"], one, MC_STEP_BOUND)
+    print(f"mc part 5 f32 SGD step, NCCL on {[r['device'] for r in res]}: "
+          f"loss {res[0]['float32']['loss']:.7f} vs {loss1:.7f}, params "
+          f"max |diff| {err:.3g} (bounds {MC_STEP_LOSS_BOUND}, "
+          f"{MC_STEP_BOUND} abs + rel)")
+    print(f"timing mc gradient all-reduce (NCCL, {MC_RANKS} cards, "
+          f"{res[0]['floats']:,} floats): {res[0]['allreduce_ms']:.3f} ms; "
+          "process start " + ", ".join(f"{r['start_s']:.2f}" for r in res)
+          + f" s [{tag}]")
+    if (abs(res[0]["float32"]["loss"] - loss1) > MC_STEP_LOSS_BOUND
+            or not ok
+            or res[0]["float32"]["sha"] != res[1]["float32"]["sha"]):
+        fail("mc part 5: the NCCL step differs")
+
+
+def phase_mc(TR, TA, CB, TK, dev, seed, tag, tmp):
+    """Phase 15: parts 1-5 (see the module docstring).  Returns part 1's
+    launch counts summed over its ranks."""
+    from xvector_tpu_torch.models import tdnn as tt
+    from xvector_tpu_torch.models.convert import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    launches = mc_part1(TA, dev, seed, tag, tmp)
+
+    # parts 2 and 4: one SGD step, 2 ranks against 1; the long utterance
+    rng = np.random.default_rng(seed + 120)
+    means = rng.standard_normal((TRAIN_CLASSES, 23), dtype=np.float32)
+    y = rng.integers(0, TRAIN_CLASSES, TRAIN_B, dtype=np.int32)
+    x = (means[y][:, None, :] + rng.standard_normal(
+        (TRAIN_B, TRAIN_T, 23), dtype=np.float32)).astype(np.float16)
+    _, p0, s0 = model(tt, "no_dropout", seed + 121, TRAIN_CLASSES, "cpu")
+    weights = (p0, s0)
+    _, sp, ss = model(tt, "no_dropout", seed + 122, TRAIN_CLASSES, "cpu")
+    seq_x = np.zeros((SEQ_FRAMES, 23), np.float32)
+    seq_x[:SEQ_VALID] = rng.standard_normal((SEQ_VALID, 23),
+                                            dtype=np.float32)
+    work = os.path.join(tmp, "mc_parity")
+    inputs = {"x": x, "y": y, "weights": weights, "seq_x": seq_x,
+              "seq_weights": (sp, ss)}
+    res = mc_spawn("parity", MC_RANKS, "gloo", work, seed, inputs, dev)
+    for dtype in ("float32", "bfloat16"):
+        if len({r[dtype]["sha"] for r in res}) != 1:
+            fail(f"mc part 2 {dtype}: the ranks hold different bits")
+        loss1, one = mc_compare(TR, dev, mc_step_cfg(TR, seed, dtype),
+                                weights, (x, y, TRAIN_T),
+                                os.path.join(work, f"one_{dtype}"))
+        got = res[0][dtype]
+        if dtype == "float32":
+            ok, err = mc_close(got["params"], one, MC_STEP_BOUND)
+            print(f"mc part 2 f32 SGD step, {MC_RANKS} gloo ranks vs 1: loss "
+                  f"{got['loss']:.7f} vs {loss1:.7f}, params and BN state "
+                  f"max |diff| {err:.3g} (bounds {MC_STEP_LOSS_BOUND}, "
+                  f"{MC_STEP_BOUND} abs + rel); K2-K4 calls {got['routes']} "
+                  f"(f32 takes the plain convs)")
+            if abs(got["loss"] - loss1) > MC_STEP_LOSS_BOUND or not ok:
+                fail("mc part 2: the f32 step on 2 ranks differs from 1")
+        else:
+            before = tree_leaves(weights)
+            n = len(before)
+            cos = min(float(F.cosine_similarity(
+                (a - w).double().flatten(), (b - w).double().flatten(),
+                dim=0)) for a, b, w in zip(got["params"][:n], one[:n],
+                                           before))
+            rel = abs(got["loss"] - loss1) / abs(loss1)
+            # one step, 2 wide layers: each kernel twice on every rank
+            want = {f"{k}_{d}": 2 if d == "sm90" else 0
+                    for k in ("fwd", "dw", "dx") for d in ("sm90", "sm80")}
+            print(f"mc part 2 bf16 SGD step (K2-K4), {MC_RANKS} ranks vs 1: "
+                  f"loss {got['loss']:.6f} vs {loss1:.6f} (relative "
+                  f"{rel:.3g}, bound {TRAIN_LOSS_BOUND}), update cosine min "
+                  f"{cos:.6f} (bound {TRAIN_COSINE_BOUND}); each rank's "
+                  f"K2-K4 calls {[r[dtype]['routes'] for r in res]}")
+            if rel > TRAIN_LOSS_BOUND or cos < TRAIN_COSINE_BOUND:
+                fail("mc part 2: the bf16 step on 2 ranks differs from 1")
+            if any(r[dtype]["routes"] != want for r in res):
+                fail(f"mc part 2: K2-K4 calls per rank are not {want}")
+    cfg = tt.MODEL_ZOO["no_dropout"]
+    sp_d, ss_d = (tree_map(lambda t: t.to(dev), t_) for t_ in (sp, ss))
+    with torch.no_grad():
+        want = tt.extract_xvector(cfg, sp_d, ss_d, torch.from_numpy(
+            seq_x[None, :SEQ_VALID]).to(dev))[0].cpu()
+    errs = [norm_err(r["seq"], want)[1] for r in res]
+    print(f"mc part 4 seq_sharded_xvector ({MC_RANKS} gloo ranks, "
+          f"no_dropout f32, {SEQ_FRAMES} frames, valid {SEQ_VALID}) vs one "
+          f"process's unchunked extract_xvector: normalised error "
+          + ", ".join(f"{e:.3g}" for e in errs) + f" (bound {SEQ_BOUND})")
+    if max(errs) > SEQ_BOUND or not torch.equal(res[0]["seq"], res[1]["seq"]):
+        fail("mc part 4: the sequence-sharded x-vector differs")
+    print(f"timing mc seq_sharded_xvector {SEQ_FRAMES} frames on "
+          f"{MC_RANKS} ranks: {res[0]['seq_ms']:.2f} ms per call; gradient "
+          f"all-reduce (gloo, {res[0]['floats']:,} floats) "
+          f"{res[0]['allreduce_ms']:.2f} ms; process start "
+          + ", ".join(f"{r['start_s']:.2f}" for r in res) + f" s [{tag}]")
+
+    # part 3: sre16_full, the head split over MC_SHARDS ranks
+    from xvector_tpu_torch.presets import BENCHMARK_CONFIGS
+    from xvector_tpu_torch.train import checkpoints as C
+    block = write_train_archive(TA, os.path.join(tmp, "mc_block.xta"),
+                                seed + 130, 23, full=16, ragged=False)
+    work = os.path.join(tmp, "mc_sharded")
+    res = mc_spawn("sharded", MC_SHARDS, "gloo", work, seed,
+                   {"x": x, "y": y, "weights": weights, "block": block}, dev)
+    loss1, one = mc_compare(TR, dev, mc_step_cfg(TR, seed, "float32",
+                                                 head="softmax"),
+                            weights, (x, y, TRAIN_T),
+                            os.path.join(work, "one"))
+    n = len(tree_leaves(weights[0]))
+    got = res[0]["f32"]
+    ok, err = mc_close(got["params"], one[:n], MC_SHARDED_BOUND)
+    rel = abs(got["loss"] - loss1) / abs(loss1)
+    print(f"mc part 3 sre16_full f32 SGD step, head split over "
+          f"{MC_SHARDS} ranks ({TRAIN_CLASSES // MC_SHARDS} columns each) vs "
+          f"one process's dense softmax: loss {got['loss']:.7f} vs "
+          f"{loss1:.7f} (relative {rel:.3g}), params max |diff| {err:.3g} "
+          f"(bound {MC_SHARDED_BOUND} each)")
+    if rel > MC_SHARDED_BOUND or not ok:
+        fail("mc part 3: the sharded head's step differs from the dense one")
+    bf = [r["bf16"] for r in res]
+    want = {f"{k}_{d}": 2 * bf[0]["steps"] if d == "sm90" else 0
+            for k in ("fwd", "dw", "dx") for d in ("sm90", "sm80")}
+    print(f"mc part 3 sre16_full bf16, 2 blocks of 16: loss "
+          f"{bf[0]['losses'][0]:.4f} -> {bf[0]['losses'][1]:.4f}; trunk "
+          f"sha256 {[r['trunk'][:12] for r in bf]}; K2-K4 calls per rank "
+          f"{[r['routes'] for r in bf]} (expected {want})")
+    if not (all(math.isfinite(v) for v in bf[0]["losses"])
+            and bf[0]["losses"][1] < bf[0]["losses"][0]):
+        fail("mc part 3: the sharded bf16 loss did not fall")
+    if (len({r["trunk"] for r in bf}) != 1
+            or len({r["f32"]["trunk"] for r in res}) != 1):
+        fail("mc part 3: the ranks' trunks differ")
+    if any(r["routes"] != want for r in bf):
+        fail("mc part 3: K2-K4 calls per rank are not 6 per step on sm90")
+    tr = TR.Trainer(BENCHMARK_CONFIGS["sre16_full"],
+                    os.path.join(work, "restore"), device=dev)
+    C.restore_into(tr, C.iteration_path(os.path.join(work, "sharded_bf16"),
+                                        1))
+    for key, dim in (("w", 1), ("b", 0)):
+        whole = torch.cat([r["head"][key] for r in bf], dim)
+        if not torch.equal(tr.params["output"][key].detach().cpu(), whole):
+            fail("mc part 3: the restored head is not the shards side by "
+                 "side")
+    print(f"mc part 3: the checkpoint restores in one process, its head "
+          f"the {MC_SHARDS} shards side by side")
+    print(f"timing mc sharded step (sre16_full bf16, {MC_SHARDS} ranks on one "
+          f"card): {bf[0]['ms_per_step']:.2f} ms per minibatch; checkpoint "
+          f"save with the head's gather {bf[0]['save_ms']:.1f} ms; process "
+          "start " + ", ".join(f"{r['start_s']:.2f}" for r in res)
+          + f" s [{tag}]")
+
+    mc_nccl(TR, dev, seed, tag, tmp, (x, y, weights))
+    mc_conv_timing(CB, dev, seed, tag)
+    print(f"mc: phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3610,6 +4224,10 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         sre16_routes, sre16_k1 = phase_sre16(CB, TK, kio, dev, args.seed,
                                              tag, tmp)
+
+    # 15. the multi-rank paths: several ranks on the one card
+    with tempfile.TemporaryDirectory() as tmp:
+        mc = phase_mc(TR, TA, CB, TK, dev, args.seed, tag, tmp)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the device "
           f"check to here")
 
@@ -3650,6 +4268,10 @@ def main(argv=None) -> int:
             # route and the feature-ark route)
             "sre16_launches": sre16_k1["sm90" if key == "rule"
                                        else "sm80"],
+            # ... and over the multi-rank run's utterance-sharded
+            # extraction (phase 15 part 1, summed over its ranks)
+            "mc_launches": mc["k1"].get("sm90" if key == "rule" else "sm80",
+                                        0),
             **({"launches_by_design": main_routes} if key == "rule" else {}),
         })
     # K2-K4: the main path makes one k=5 and one k=7 call of each per
@@ -3679,6 +4301,9 @@ def main(argv=None) -> int:
             "recipe_launches": recipe_routes[route],
             # ... and over run_sre16's training (phase 14, run 1)
             "sre16_launches": sre16_routes[route],
+            # ... and over the multi-rank run's training (phase 15 part 1,
+            # the straight run, summed over its ranks)
+            "mc_launches": mc["conv"].get(route, 0),
             "max_abs_err": conv_errs[key],
             **mean,
             "bound_by": per_k[0]["bound_by"],

@@ -813,3 +813,77 @@ def test_run_sre16_tiny_on_card_takes_sm90_designs(cuda_device, tmp_path):
                                           "dx_sm90": steps}
         else:
             assert not any(conv.values())      # the model is kept
+
+
+# ---------------------------------------------------------------------------
+# several gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def _tiny_weights(classes, seed=0):
+    from xvector_tpu_torch.models.convert import params_to_numpy
+    return params_to_numpy(*tt.init_params(
+        torch.Generator().manual_seed(seed), tt.MODEL_ZOO["tiny"], classes,
+        device="cpu"))
+
+
+def _one_rank_step(weights, batches, path, **fields):
+    """One process's SGD iteration on the card from the same weights."""
+    from xvector_tpu_torch.models.convert import params_from_numpy, tree_leaves
+    cfg = TR.TrainConfig(**{**dict(model="tiny", num_targets=8,
+                                   compute_dtype="float32", block_size=2,
+                                   optimizer="sgd", momentum=0.5), **fields})
+    tr = TR.Trainer(cfg, str(path))
+    tr._place_all(*params_from_numpy(*weights, device="cpu"))
+    st = tr.train_one_iteration(0, iter(batches), lr=1e-3, dropout=0.0,
+                                shrink=1.0)
+    return st["loss"], [p.detach().cpu() for p in tree_leaves(tr.params)]
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_share_the_card_for_a_bf16_step(cuda_device,
+                                                       tmp_path):
+    """Two gloo ranks on cuda:0, one bf16 SGD step through K2-K4 on each
+    rank's rows, against one process on the whole batch: chip_smoke.py's
+    phase 15 part 2 at tiny width (loss 1e-2 relative, per-parameter
+    update cosine >= 0.98), every rank's K2-K4 calls on sm90 (tiny's one
+    wide layer: one call each)."""
+    import torch_dist_workers as W
+    weights = _tiny_weights(8)
+    batches = W.scaling_batches(n=1, mb=8, t=48)
+    res = W.run("cuda_step", 2, {"tiny": weights, "work": str(tmp_path),
+                                 "device": "cuda:0", "batches": batches},
+                tmp_path)
+    for a, b in zip(res[0]["params"], res[1]["params"]):
+        assert torch.equal(a, b)                 # the same bits on each rank
+    loss, one = _one_rank_step(weights, batches, tmp_path / "one",
+                               compute_dtype="bfloat16")
+    assert abs(res[0]["loss"] - loss) / abs(loss) < 1e-2
+    from xvector_tpu_torch.models.convert import tree_leaves
+    before = [torch.from_numpy(a) for a in tree_leaves(weights[0])]
+    for a, b, w in zip(res[0]["params"], one, before):
+        cos = torch.nn.functional.cosine_similarity(
+            (a - w).double().flatten(), (b - w).double().flatten(), dim=0)
+        assert cos >= 0.98
+    want = {"fwd_sm90": 1, "dw_sm90": 1, "dx_sm90": 1, "fwd_sm80": 0,
+            "dw_sm80": 0, "dx_sm80": 0}
+    assert all(r["routes"] == want for r in res)
+
+
+@pytest.mark.cuda
+def test_sharded_head_on_three_ranks_of_the_card(cuda_device, tmp_path):
+    """``head="sharded_softmax"`` over three gloo ranks on cuda:0 (9
+    classes, 3 columns each): one f32 SGD step equals one process's dense
+    softmax step at 1e-5."""
+    import torch_dist_workers as W
+    weights = _tiny_weights(9)
+    batches = W.scaling_batches(n=1, mb=8, t=48)
+    batches = [(x, y % 9, t) for x, y, t in batches]
+    res = W.run("cuda_sharded", 3, {"tiny": weights, "work": str(tmp_path),
+                                    "device": "cuda:0", "batches": batches,
+                                    "num_targets": 9}, tmp_path)
+    loss, one = _one_rank_step(weights, batches, tmp_path / "one",
+                               num_targets=9)
+    for r in res:
+        assert abs(r["loss"] - loss) <= 1e-5 * abs(loss)
+        for a, b in zip(r["params"], one):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

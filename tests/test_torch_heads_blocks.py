@@ -27,6 +27,7 @@ from xvector_tpu_torch.data import reference_tar as TRT
 from xvector_tpu_torch.models import blocks as TB
 from xvector_tpu_torch.models import heads as TH
 from xvector_tpu_torch.models import tdnn as tt
+from xvector_tpu_torch.models.convert import tree_leaves
 from xvector_tpu_torch.train import trainer as TR
 from xvector_tpu_torch.utils import scores as TSC
 from xvector_tpu_torch.utils.profiling import device_forensics
@@ -163,9 +164,29 @@ def test_presets_match_jax():
 
 
 def test_sharded_preset_is_refused(tmp_path):
-    cfg = replace(TP.BENCHMARK_CONFIGS["sre16_full"], model="tiny")
-    with pytest.raises(NotImplementedError, match="sharded_softmax"):
-        TR.Trainer(cfg, str(tmp_path), device="cpu")
+    """``sre16_full`` is no longer refused: its sharded head trains, and on
+    a one-rank mesh (the whole head on the one rank) it takes the dense
+    softmax's steps."""
+    # SGD: the update is linear in the gradient, so the two heads' f32
+    # round-off stays at its own size (Adam turns it into ±lr steps)
+    cfg = replace(TP.BENCHMARK_CONFIGS["sre16_full"], model="tiny",
+                  compute_dtype="float32", block_size=2, optimizer="sgd")
+    rng = np.random.RandomState(3)
+    mbs = [(rng.randn(4, 24, 23).astype(np.float16),
+            rng.randint(0, cfg.num_targets, 4).astype(np.int32), 24)
+           for _ in range(3)]
+    runs = []
+    for head in ("sharded_softmax", "softmax"):
+        tr = TR.Trainer(replace(cfg, head=head), str(tmp_path / head),
+                        device="cpu")
+        stats = tr.train_one_iteration(0, iter(mbs), 1e-3, 0.0, 1.0)
+        runs.append((stats["loss"], stats["accuracy"], tr.params))
+    (la, aa, pa), (lb, ab, pb) = runs
+    assert np.isfinite(la) and la == pytest.approx(lb, rel=1e-5)
+    assert aa == ab
+    for x, y in zip(tree_leaves(pa), tree_leaves(pb)):
+        np.testing.assert_allclose(x.detach().numpy(), y.detach().numpy(),
+                                   rtol=1e-5, atol=1e-6)
 
 
 def test_scores_match_jax(tmp_path):

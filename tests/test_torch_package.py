@@ -160,14 +160,18 @@ def test_params_round_trip_exact():
         np.testing.assert_array_equal(a, b)
 
 
-# modules whose every top-level function and class the port carries over
-# (the rest leave out TPU-only or multi-process pieces: ROADMAP A10c)
+# modules whose every top-level function and class the port carries over;
+# the rest are the kernel modules, utils.profiling (torch.profiler stands
+# in for its jax.profiler trace) and the TPU-only machinery ROADMAP says
+# not to port (train/spmd_step.py, utils/compile_cache.py)
 COMPLETE = ["backend.metrics", "backend.plda", "backend.plda_device",
             "cli.eval_dnn", "cli.extract_embedding", "cli.get_egs",
             "cli.run", "cli.run_sre16", "cli.train_dnn", "data.allocator",
             "data.archives", "data.corpora", "data.reference_tar",
             "extract.extractor", "io.datadir", "io.shorten", "io.wav",
-            "ops.augment", "ops.features", "train.combine",
+            "models.heads", "ops.augment", "ops.features",
+            "parallel.launch", "parallel.mc_harness", "parallel.mesh",
+            "parallel.seqshard", "train.checkpoints", "train.combine",
             "train.preemption", "train.schedules", "train.trainer",
             "utils.export", "utils.kaldi_conf", "utils.scores"]
 

@@ -403,14 +403,13 @@ def test_xta_archives_cross_packages(tmp_path):
                                          ("final_combine", True),
                                          ("head", "sharded_softmax")])
 def test_trainer_refuses_what_is_not_ported(tmp_path, field, value):
-    """The mesh-only options (the shard_map step, the sharded head) raise;
-    the AM-softmax head and final combination train."""
+    """The shard_map step raises; the AM-softmax head, the sharded head
+    (on a one-rank mesh, the dense softmax) and final combination train."""
     cfg = replace(TR.TrainConfig(model="tiny", num_targets=3, num_epochs=1,
                                  compute_dtype="float32", block_size=2,
                                  combine_opt_steps=3),
                   **{field: value})
-    if (field, value) in (("spmd_step", "shard_map"),
-                          ("head", "sharded_softmax")):
+    if (field, value) == ("spmd_step", "shard_map"):
         with pytest.raises(NotImplementedError):
             TR.Trainer(cfg, str(tmp_path), device="cpu")
         return

@@ -60,6 +60,7 @@ from ..io.datadir import DataDir
 from ..models import tdnn
 from ..ops import features as featlib
 from ..ops import tdnn_kernel
+from ..parallel import launch
 from ..runtime import native
 from ..train.trainer import TrainConfig, Trainer
 
@@ -462,19 +463,31 @@ class Recipe:
         return self.cfg.num_archives
 
     # -- stage 3: train (train_dnn.py) -------------------------------------
-    def train(self, num_targets: int) -> Trainer:
+    def train(self, num_targets: int, mesh=None) -> Trainer:
         """Train on the materialised archives, or (``stream_egs``) on
         minibatches assembled from the egs feature ark at train time in
-        the same order."""
+        the same order.  ``mesh`` (``parallel/mesh.py``) makes this process
+        one rank of a multi-GPU run (``Trainer``'s launch contract: each
+        rank feeds its rows of every minibatch)."""
         tcfg = replace(self.cfg.train, num_targets=num_targets)
         trainer = Trainer(tcfg, self._p("exp"),
                           feat_dim=self.cfg.mfcc.num_ceps,
-                          device=self.device)
+                          device=self.device, mesh=mesh)
 
         # plans and the scp→offset map are identical across epochs/retries:
         # parse once, reuse every iteration
         stream_cache: Dict[int, alloclib.ArchivePlan] = {}
         stream_src: Dict[str, Tuple[str, int]] = {}
+
+        def local_rows(batches):
+            """This rank's rows of each minibatch (the launch contract)."""
+            for x, y, t in batches:
+                lo, hi = launch.host_local_batch_slice(x.shape[0],
+                                                       trainer.mesh)
+                yield x[lo:hi], y[lo:hi], t
+
+        def loader(batches):
+            return local_rows(batches) if trainer.mesh.size > 1 else batches
 
         def archive_batches(i):
             if self.cfg.stream_egs:
@@ -487,17 +500,18 @@ class Recipe:
                     stream_cache[i] = alloclib.ArchivePlan.from_ranges_lines(
                         i, lines,
                         length_bucket=self.cfg.allocator.length_bucket)
-                return archlib.stream_plan_loader(
+                return loader(archlib.stream_plan_loader(
                     stream_cache[i], utt2src=stream_src,
-                    shuffle_seed=self.cfg.allocator.seed + i)
+                    shuffle_seed=self.cfg.allocator.seed + i))
             reader = archlib.ArchiveReader(self._p(f"egs.{i}.xta"))
-            return archlib.PrefetchLoader(reader)
+            return loader(archlib.PrefetchLoader(reader))
 
         def diag(name):
             p = self._p(name)
             if not os.path.exists(p):
                 return None
-            return lambda: archlib.PrefetchLoader(archlib.ArchiveReader(p))
+            return lambda: loader(archlib.PrefetchLoader(
+                archlib.ArchiveReader(p)))
 
         trainer.train(archive_batches, self._resolved_num_archives(),
                       valid_batches=diag("valid_egs.xta"),

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..ops import conv_bwd
+from ..parallel import mesh as meshlib
 from .convert import tree_map
 
 VAR2STD_EPSILON = 1e-5
@@ -211,45 +212,77 @@ def _activate(cfg: TdnnConfig, layer: Params, x):
     raise ValueError(cfg.activation)
 
 
-def _masked_moments(x, mask, axes, centered: bool = False):
+def _masked_moments(x, mask, axes, centered: bool = False, group=None):
     """Mean and variance over ``axes``, ignoring positions where
     mask == 0.  Products run in x's dtype; the sums accumulate in f32 (f64
     for f64 input).  ``mask`` broadcasts against x with a trailing feature
     dim of 1.  The variance is E[x²]−mean², or with ``centered`` the mean
     of (x−mean)²: one elementwise pass more, but free of the cancellation
     that makes autograd through E[x²]−mean² lose most digits of the input
-    gradient in f32 (the train-mode batch norm takes it)."""
+    gradient in f32 (the train-mode batch norm takes it).
+
+    ``group`` (a process group, see ``parallel/mesh.py``) makes the moments
+    global over its ranks' rows, the counterpart of the JAX package's
+    ``axis_name``: the masked sums and counts are all-reduced (the
+    centred variance takes a second all-reduce, of Σ(x−mean)²), and the
+    backward all-reduces their gradients, since each rank's loss is its
+    rows' share of the objective."""
     acc = _acc_dtype(x.dtype)
     if mask is None:
         m = None
         count = math.prod(x.shape[a] for a in axes)
+        if group is not None:
+            count = torch.tensor(float(count), dtype=acc, device=x.device)
     else:
         m = mask.to(x.dtype)
-        count = mask.to(acc).sum(axes).clamp(min=1.0)
+        count = mask.to(acc).sum(axes)
 
     def wsum(v):
-        return (v if m is None else v * m).sum(axes, dtype=acc) / count
+        return (v if m is None else v * m).sum(axes, dtype=acc)
 
-    mean = wsum(x)
-    if not centered:
-        return mean, wsum(x.square()) - mean.square()
+    def global_sums(*sums):
+        """The sums and the count, all-reduced in one buffer."""
+        parts = [*sums, count]
+        flat = meshlib.all_reduce_sum(torch.cat([p.reshape(-1) for p in parts]),
+                                   group)
+        out, i = [], 0
+        for p in parts:
+            out.append(flat[i:i + p.numel()].view(p.shape))
+            i += p.numel()
+        return out
+
+    if group is None:
+        n = count if m is None else count.clamp(min=1.0)
+        mean = wsum(x) / n
+        if not centered:
+            return mean, wsum(x.square()) / n - mean.square()
+    elif centered:
+        s1, n = global_sums(wsum(x))
+        n = n.clamp(min=1.0)
+        mean = s1 / n
+    else:
+        s1, s2, n = global_sums(wsum(x), wsum(x.square()))
+        n = n.clamp(min=1.0)
+        mean = s1 / n
+        return mean, s2 / n - mean.square()
     mean_k = mean.to(x.dtype)
     for a in sorted(axes):
         mean_k = mean_k.unsqueeze(a)
-    return mean, wsum((x - mean_k).square())
+    return mean, meshlib.all_reduce_sum(wsum((x - mean_k).square()), group) / n
 
 
 def _batch_norm(x, bn_p, bn_s, mask, train: bool, cfg: TdnnConfig,
-                stats_out: bool = False):
+                stats_out: bool = False, group=None):
     """tf_block.batch_norm_wrapper semantics: train → batch moments (masked)
     and an EMA update of the population statistics; eval → population
     statistics.  ``stats_out=True`` (train only) returns the raw batch
     moments in place of the EMA'd state, for :func:`fold_bn_state`; the
     normalisation is the same either way.  (mean, var, γ, β) fold into one
-    per-channel affine computed in f32 and applied in x's dtype."""
+    per-channel affine computed in f32 and applied in x's dtype.  ``group``
+    makes the train-mode moments global (:func:`_masked_moments`)."""
     if train:
         mean, var = _masked_moments(x, mask, tuple(range(x.dim() - 1)),
-                                    centered=True)
+                                    centered=True, group=group)
         if stats_out:
             new_s = {"mean": mean, "var": var}
         else:
@@ -374,7 +407,8 @@ def apply(cfg: TdnnConfig, params: Params, state: State, x, *, mask=None,
           generator: Optional[torch.Generator] = None,
           compute_dtype=torch.float32, bn_stats_out: bool = False,
           skip_head: bool = False,
-          fused_conv_bwd: bool = False) -> Dict[str, Any]:
+          fused_conv_bwd: bool = False, group=None,
+          head_group=None) -> Dict[str, Any]:
     """Forward pass, train or eval.
 
     x is (B, T, feat_dim); ``mask`` an optional (B, T) 1/0 frame mask;
@@ -382,7 +416,11 @@ def apply(cfg: TdnnConfig, params: Params, state: State, x, *, mask=None,
     left out of the batch-norm statistics.  Dropout (``cfg.use_dropout``
     and ``train``) draws from ``generator``, whose bits differ from
     ``jax.random``'s.  ``fused_conv_bwd`` routes the wide conv layers to
-    ``ops/conv_bwd`` (see :func:`_conv1d_same`).
+    ``ops/conv_bwd`` (see :func:`_conv1d_same`).  ``group`` (the data
+    group of a mesh) makes the train-mode batch-norm moments global over
+    its ranks' rows; ``head_group`` (the model group) sums the L2 term of
+    a head whose columns are split over its ranks, with an identity
+    backward.
 
     Returns ``logits`` (B, num_classes) or None with ``skip_head``,
     ``xvector`` (the embed-0 pre-activation), ``hidden``, ``pooled``,
@@ -413,7 +451,7 @@ def apply(cfg: TdnnConfig, params: Params, state: State, x, *, mask=None,
                          ) + layer["b"].to(compute_dtype)
         h = _activate(cfg, layer, h)
         h, bn_s = _batch_norm(h, layer["bn"], state["frame"][i], m, train,
-                              cfg, stats_out=bn_stats_out)
+                              cfg, stats_out=bn_stats_out, group=group)
         if m is not None:
             h = h * m.to(h.dtype)    # keep pad positions zero for next conv
         new_state["frame"].append(bn_s)
@@ -435,7 +473,7 @@ def apply(cfg: TdnnConfig, params: Params, state: State, x, *, mask=None,
                                      + layer["b"].square().sum())
         h = _activate(cfg, layer, pre)
         h, bn_s = _batch_norm(h, layer["bn"], state["embed"][i], rw, train,
-                              cfg, stats_out=bn_stats_out)
+                              cfg, stats_out=bn_stats_out, group=group)
         new_state["embed"].append(bn_s)
         if i != len(cfg.embed_dims) - 1:
             h = dropout(h)
@@ -444,7 +482,9 @@ def apply(cfg: TdnnConfig, params: Params, state: State, x, *, mask=None,
     logits = (None if skip_head
               else _affine(h, out["w"], out["b"], compute_dtype))
     if cfg.l2_beta > 0.0:
-        l2 = l2 + 0.5 * (out["w"].square().sum() + out["b"].square().sum())
+        l2 = l2 + meshlib.reduce_from_group(
+            0.5 * (out["w"].square().sum() + out["b"].square().sum()),
+            head_group)
     return {
         "logits": None if logits is None else logits.to(acc),
         "xvector": xvector,

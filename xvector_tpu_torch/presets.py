@@ -2,9 +2,9 @@
 
 Own copy of ``xvector_tpu/presets.py``: each entry pairs a model topology
 with training knobs; callers ``dataclasses.replace`` in their corpus
-specifics (num_targets, egs paths).  ``sre16_full``'s sharded head needs a
-mesh of several devices, which the port does not have yet: its
-``Trainer`` raises ``NotImplementedError``.
+specifics (num_targets, egs paths).  ``sre16_full``'s head is split over
+the ``model`` axis of the trainer's mesh (``parallel/mesh.py``; on one
+rank it is whole).
 """
 
 from __future__ import annotations

@@ -10,20 +10,32 @@ Layout: ``<work_dir>/model_<iter>/{ckpt.pt, done}``; ``ckpt.pt`` holds
 ``{"params", "state", "optimizer": optimizer.state_dict()}``.  A save
 commits atomically: ``ckpt.pt.tmp`` is written and synced, renamed into
 place, and only then is ``done`` written.  ``model_final`` is a symlink to
-the last iteration's directory (or to ``model_combined``).  One process
-owns the work dir: the JAX package's cross-process barriers have no
-counterpart until multi-process training is ported.
+the last iteration's directory (or to ``model_combined``).
+
+Several ranks (``parallel/mesh.py``) share one work dir: every rank of the
+trainer's mesh calls the save functions at the same point, the mesh's
+coordinator (its rank 0) alone writes, marks ``done``, collects garbage
+and marks ``model_final``, and every rank passes the same barriers
+(``pre_save``, ``post_save``, ``post_done``, ``mark_final``) as the JAX
+package's, on the mesh's world group.  The functions that take a work dir
+instead of a trainer take its ``mesh`` (None: one process).  Under a head whose
+columns are split over the ``model`` axis, the head and its optimizer
+moments are gathered before the save, so the file has the single-process
+layout whatever the mesh: ``cli.extract_embedding`` and a one-process
+resume read it unchanged, and :func:`restore_into` splits it again.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Optional
 
 import torch
 
-from ..models.convert import tree_map
+from ..models.convert import (gather_params, shard_params, tree_leaves,
+                              tree_map)
+from ..parallel import mesh as meshlib
 
 if TYPE_CHECKING:
     from .trainer import Trainer
@@ -34,6 +46,19 @@ __all__ = ["save_iteration", "restore_latest", "restore_into",
            "iteration_path", "latest_complete"]
 
 CKPT = "ckpt.pt"
+
+
+def _is_coordinator(mesh: Optional[meshlib.Mesh]) -> bool:
+    return mesh is None or mesh.rank == 0
+
+
+def _sync(tag: str, mesh: Optional[meshlib.Mesh]):
+    """Barrier over the mesh's ranks (nothing for one process).  Ranks that
+    share a work dir need the coordinator's writes ordered against every
+    rank's reads, and the ``done`` sentinel visible everywhere before any
+    rank passes the iteration boundary.  ``tag`` names the barrier where
+    it is called."""
+    meshlib.barrier(None if mesh is None else mesh.world_group)
 
 
 def pin_seed(work_dir: str, seed: int):
@@ -83,28 +108,61 @@ def is_complete(path: str) -> bool:
     return os.path.exists(os.path.join(path, "done"))
 
 
+def _head_sharded(trainer: "Trainer") -> bool:
+    return trainer.cfg.head == "sharded_softmax" and trainer.mesh.model > 1
+
+
+def _map_head_moments(trainer: "Trainer", opt: dict, fn) -> dict:
+    """``opt`` (a state dict, keyed by ``tree_leaves`` order) with
+    ``fn(tensor, dim)`` applied to the per-element moments of the head's
+    ``w`` and ``b``, whose columns run along dim 1 and 0 (the entries
+    shaped like their parameter; step counts stay)."""
+    out = trainer.params["output"]
+    dims = {id(out["w"]): 1, id(out["b"]): 0}
+    state = dict(opt["state"])
+    for i, leaf in enumerate(tree_leaves(trainer.params)):
+        if id(leaf) in dims and i in state:
+            state[i] = {k: (fn(v, dims[id(leaf)])
+                            if isinstance(v, torch.Tensor)
+                            and v.dim() == leaf.dim() else v)
+                        for k, v in state[i].items()}
+    return {**opt, "state": state}
+
+
 def _write(trainer: "Trainer", d: str) -> str:
-    os.makedirs(d, exist_ok=True)
+    params = tree_map(torch.Tensor.detach, trainer.params)
+    opt = trainer.optimizer.state_dict()
+    if _head_sharded(trainer):
+        group = trainer.mesh.model_group
+        params = gather_params(params, trainer.mesh)
+        opt = _map_head_moments(
+            trainer, opt, lambda t, dim: meshlib.gather_dim(t, dim, group))
     done = os.path.join(d, "done")
-    if os.path.exists(done):        # a rewrite is incomplete until it commits
-        os.remove(done)
-    path = os.path.join(d, CKPT)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        torch.save({"params": tree_map(torch.Tensor.detach, trainer.params),
-                    "state": trainer.state,
-                    "optimizer": trainer.optimizer.state_dict()}, f)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-    with open(done, "w") as f:
-        f.write("done\n")
+    if _is_coordinator(trainer.mesh):
+        os.makedirs(d, exist_ok=True)
+        if os.path.exists(done):    # a rewrite is incomplete until it commits
+            os.remove(done)
+    _sync("pre_save", trainer.mesh)
+    if _is_coordinator(trainer.mesh):
+        path = os.path.join(d, CKPT)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            torch.save({"params": params, "state": trainer.state,
+                        "optimizer": opt}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    _sync("post_save", trainer.mesh)
+    if _is_coordinator(trainer.mesh):
+        with open(done, "w") as f:
+            f.write("done\n")
+    _sync("post_done", trainer.mesh)
     return d
 
 
 def save_iteration(trainer: "Trainer", it: int):
     """Save the trainer's params, BN state and optimizer state as
-    iteration ``it``."""
+    iteration ``it`` (collective when several ranks train)."""
     _write(trainer, _iter_dir(trainer.work_dir, it))
 
 
@@ -118,11 +176,19 @@ def save_named(trainer: "Trainer", name: str) -> str:
 def restore_into(trainer: "Trainer", path: str):
     """Install a checkpoint dir's params and BN state in the trainer and
     rebuild its optimizer over the restored leaves (``tree_leaves`` order,
-    the order its state dict is keyed by) with the saved state loaded."""
+    the order its state dict is keyed by) with the saved state loaded.
+    Under a head split over the ``model`` axis, each rank keeps its
+    columns of the head and of their moments."""
     ckpt = torch.load(os.path.join(path, CKPT), map_location=trainer.device,
                       weights_only=True)
-    trainer.set_params(ckpt["params"], ckpt["state"])
-    opt = ckpt["optimizer"]
+    params, opt = ckpt["params"], ckpt["optimizer"]
+    if _head_sharded(trainer):
+        params = shard_params(params, trainer.mesh)
+    trainer.set_params(params, ckpt["state"])
+    if _head_sharded(trainer):
+        opt = _map_head_moments(
+            trainer, opt, lambda t, dim: meshlib.Sharding(
+                trainer.mesh, "model", dim).local(t).contiguous())
     for st in opt["state"].values():
         # torch.optim.Adam keeps its step count on the CPU (capturable is
         # off); map_location moved it to the trainer's device
@@ -170,10 +236,14 @@ def restore_latest(trainer: "Trainer", start_iter: int = 0) -> int:
 
 
 def collect_garbage(work_dir: str, current_iter: int,
-                    preserve_interval: int, keep=()):
+                    preserve_interval: int, keep=(),
+                    mesh: Optional[meshlib.Mesh] = None):
     """Keep the last two iterations + every preserve_interval-th
     (ze_utils.py:186-194) + explicit ``keep`` iterations (the combination
-    candidate set, train_dnn.py:565-567)."""
+    candidate set, train_dnn.py:565-567).  On a mesh only its coordinator
+    deletes (a shared work dir has one deleter)."""
+    if not _is_coordinator(mesh):
+        return
     keep = set(keep)
     for it, path in iteration_dirs(work_dir):
         if it >= current_iter - 1 or it in keep:
@@ -183,15 +253,19 @@ def collect_garbage(work_dir: str, current_iter: int,
         shutil.rmtree(path, ignore_errors=True)
 
 
-def mark_final(work_dir: str, final_iter):
+def mark_final(work_dir: str, final_iter,
+               mesh: Optional[meshlib.Mesh] = None):
     """Point ``model_final`` at iteration ``final_iter`` (int) or at a
-    named checkpoint dir (str, e.g. ``model_combined``); the link is
-    replaced atomically."""
+    named checkpoint dir (str, e.g. ``model_combined``); the mesh's
+    coordinator replaces the link atomically, then every rank of the mesh
+    passes a barrier."""
     link = os.path.join(work_dir, "model_final")
     target = (f"model_{final_iter}" if isinstance(final_iter, int)
               else final_iter)
-    tmp = link + ".tmp"
-    if os.path.islink(tmp) or os.path.exists(tmp):
-        os.remove(tmp)
-    os.symlink(target, tmp)
-    os.replace(tmp, link)
+    if _is_coordinator(mesh):
+        tmp = link + ".tmp"
+        if os.path.islink(tmp) or os.path.exists(tmp):
+            os.remove(tmp)
+        os.symlink(target, tmp)
+        os.replace(tmp, link)
+    _sync("mark_final", mesh)

@@ -1,6 +1,7 @@
 """Training step, block step, the iteration and the outer training loop.
 
-Counterpart of ``xvector_tpu/train/trainer.py`` on one device:
+Counterpart of ``xvector_tpu/train/trainer.py``, on one device or on a
+mesh of ranks (``parallel/mesh.py``):
 
 * :func:`make_train_step`: one minibatch: forward in train mode, softmax
   CE or AM-softmax (+ L2), backward, the optimizer update and the BN-state
@@ -29,8 +30,18 @@ defaults to True: the wide conv layers run the hand-written kernels of
 ``ops/conv_bwd`` (one GPU needs no partitioning rule, which is why the
 JAX package left its Pallas kernels opt-in).
 
-Not ported yet: the sharded-softmax head and the shard_map step (they
-need a mesh of several devices).
+On a mesh of several ranks (``Trainer(..., mesh=...)``) every rank feeds
+its own rows of each global minibatch; the batch-norm moments and the
+loss's mean are global (all-reduced over the data group), and after each
+backward the gradients are summed over the data group in one flat
+all-reduce, so every rank applies the same update to the same bits.
+``head="sharded_softmax"`` splits the head's columns over the model axis
+(:func:`~..models.heads.local_sharded_softmax_ce`); ``"softmax"`` keeps it
+whole on every rank.  Checkpoints are written by rank 0 in the
+single-process layout; the held-out diagnostics run inline, read one
+iteration later (:meth:`Trainer.evaluate_async`), because no collective
+may run on a worker thread.  The JAX package's ``shard_map`` step exists
+for ``pallas_call``'s lack of a partitioning rule and is not ported.
 """
 
 from __future__ import annotations
@@ -51,7 +62,9 @@ import torch
 from .. import resolve_device
 from ..models import tdnn
 from ..models.convert import tree_leaves, tree_map
-from ..models.heads import accuracy, am_softmax, softmax_ce
+from ..models.heads import (accuracy, am_softmax, local_sharded_softmax_ce,
+                            softmax_ce)
+from ..parallel import mesh as meshlib
 from ..utils.profiling import StepTimer, device_forensics
 from . import checkpoints, combine, schedules
 from .preemption import PreemptedError
@@ -72,7 +85,8 @@ class TrainConfig:
     proportional_shrink: float = 0.0       # 10 in recipe but dead in TF
     apply_shrink: bool = False             # off for strict parity
     random_seed: int = 2468                # run_xvector.sh:85
-    head: str = "softmax"                  # softmax | am_softmax
+    head: str = "softmax"                  # softmax | am_softmax |
+    # sharded_softmax (the head's columns split over the mesh's model axis)
     am_scale: float = 30.0
     am_margin: float = 0.2
     preserve_model_interval: int = 10      # run_xvector.sh:106
@@ -110,43 +124,63 @@ def _compute_dtype(cfg: TrainConfig) -> torch.dtype:
 
 def _loss_fn(model_cfg: tdnn.TdnnConfig, cfg: TrainConfig, params, state,
              batch, labels, t_len, n_rows, dropout_keep, generator,
-             bn_stats_out: bool = False, dense: bool = False):
+             bn_stats_out: bool = False, dense: bool = False,
+             mesh: Optional[meshlib.Mesh] = None):
+    """Loss of this rank's rows (the global batch's on every rank under a
+    mesh), with (new BN state or batch moments, CE, accuracy)."""
     if dense:
         # the caller certified every row valid and every frame real
         mask, weight = None, None
     else:
         mask, weight = _device_mask(batch.shape, t_len, n_rows, batch.device)
+    group = None if mesh is None else mesh.data_group
+    sharded = cfg.head == "sharded_softmax"
     am = cfg.head == "am_softmax"
     out = tdnn.apply(model_cfg, params, state, batch, mask=mask,
                      row_weight=weight, train=True,
                      dropout_keep=dropout_keep, generator=generator,
                      compute_dtype=_compute_dtype(cfg),
-                     bn_stats_out=bn_stats_out, skip_head=am,
-                     fused_conv_bwd=cfg.fused_conv_bwd)
-    if am:
-        ce, logits = am_softmax(out["hidden"], params["output"]["w"], labels,
-                                cfg.am_scale, cfg.am_margin,
-                                row_weight=weight)
+                     bn_stats_out=bn_stats_out, skip_head=am or sharded,
+                     fused_conv_bwd=cfg.fused_conv_bwd, group=group,
+                     head_group=(mesh.model_group if sharded and mesh
+                                 else None))
+    if sharded:
+        ce, acc = local_sharded_softmax_ce(
+            out["hidden"], params["output"]["w"], params["output"]["b"],
+            labels, mesh, row_weight=weight, data_group=group)
     else:
-        logits = out["logits"]
-        ce = softmax_ce(logits, labels, weight)
-    acc = accuracy(logits, labels, weight)
-    return ce + out["l2_loss"], (out["state"], ce, acc)
+        if am:
+            ce, logits = am_softmax(out["hidden"], params["output"]["w"],
+                                    labels, cfg.am_scale, cfg.am_margin,
+                                    row_weight=weight, group=group)
+        else:
+            logits = out["logits"]
+            ce = softmax_ce(logits, labels, weight, group)
+        acc = accuracy(logits, labels, weight, group)
+    l2 = out["l2_loss"]
+    if group is not None and mesh.data_index:
+        # every data rank holds the whole L2 term; the gradient sum over
+        # the data group must count it once
+        l2 = l2.detach()
+    return ce + l2, (out["state"], ce, acc)
 
 
 def _grad_and_update(model_cfg, cfg, optimizer, params, state, batch,
                      labels, t_len, n_rows, lr, dropout_keep, shrink,
                      generator, bn_stats_out: bool = False,
-                     dense: bool = False):
-    """Loss, gradients and one in-place optimizer update; returns (new BN
-    state or batch moments, loss, accuracy) as detached device tensors."""
+                     dense: bool = False, mesh=None):
+    """Loss, gradients (summed over the mesh's data group) and one in-place
+    optimizer update; returns (new BN state or batch moments, loss,
+    accuracy) as detached device tensors."""
     loss, (state, _, acc) = _loss_fn(
         model_cfg, cfg, params, state, batch, labels, t_len, n_rows,
-        dropout_keep, generator, bn_stats_out, dense)
+        dropout_keep, generator, bn_stats_out, dense, mesh)
     leaves = tree_leaves(params)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
+    if mesh is not None:
+        grads = meshlib.all_reduce_flat(grads, mesh.data_group)
     if cfg.max_param_change > 0.0:
         gnorm = torch.sqrt(sum(g.square().sum() for g in grads))
         scale = torch.clamp(cfg.max_param_change / (gnorm * lr + 1e-20),
@@ -165,7 +199,8 @@ def _grad_and_update(model_cfg, cfg, optimizer, params, state, batch,
     return tree_map(torch.Tensor.detach, state), loss.detach(), acc.detach()
 
 
-def make_train_step(model_cfg: tdnn.TdnnConfig, cfg: TrainConfig):
+def make_train_step(model_cfg: tdnn.TdnnConfig, cfg: TrainConfig,
+                    mesh: Optional[meshlib.Mesh] = None):
     """Single-minibatch step: ``step(params, optimizer, state, batch,
     labels, t_len, n_rows, lr, dropout_keep, shrink, generator) → (state,
     {"loss", "accuracy"})``, updating ``params`` in place."""
@@ -174,14 +209,15 @@ def make_train_step(model_cfg: tdnn.TdnnConfig, cfg: TrainConfig):
              dropout_keep, shrink, generator):
         state, loss, acc = _grad_and_update(
             model_cfg, cfg, optimizer, params, state, batch, labels, t_len,
-            n_rows, lr, dropout_keep, shrink, generator)
+            n_rows, lr, dropout_keep, shrink, generator, mesh=mesh)
         return state, {"loss": loss, "accuracy": acc}
 
     return step
 
 
 def make_block_train_step(model_cfg: tdnn.TdnnConfig, cfg: TrainConfig,
-                          dense: bool = False):
+                          dense: bool = False,
+                          mesh: Optional[meshlib.Mesh] = None):
     """Step over a block of stacked minibatches: ``block(params, optimizer,
     state, xs (N, B, T, F), ys (N, B), t_lens, n_rows, lr, dropout_keep,
     shrink, generator) → (state, {"loss", "accuracy"})`` with N sequential
@@ -197,7 +233,7 @@ def make_block_train_step(model_cfg: tdnn.TdnnConfig, cfg: TrainConfig,
             m, loss, acc = _grad_and_update(
                 model_cfg, cfg, optimizer, params, state, xs[i], ys[i],
                 t_lens[i], n_rows[i], lr, dropout_keep, shrink, generator,
-                bn_stats_out=True, dense=dense)
+                bn_stats_out=True, dense=dense, mesh=mesh)
             moments.append(m)
             losses.append(loss)
             accs.append(acc)
@@ -215,51 +251,70 @@ def make_block_train_step(model_cfg: tdnn.TdnnConfig, cfg: TrainConfig,
     return block
 
 
-def make_eval_step(model_cfg: tdnn.TdnnConfig, cfg: TrainConfig):
+def make_eval_step(model_cfg: tdnn.TdnnConfig, cfg: TrainConfig,
+                   mesh: Optional[meshlib.Mesh] = None):
     """``step(params, state, batch, labels, t_len, n_rows) → (loss,
-    accuracy)`` in eval mode."""
+    accuracy)`` in eval mode, over the global batch under a mesh."""
+    group = None if mesh is None else mesh.data_group
+    sharded = cfg.head == "sharded_softmax"
 
     @torch.no_grad()
     def step(params, state, batch, labels, t_len, n_rows):
         mask, weight = _device_mask(batch.shape, t_len, n_rows, batch.device)
         out = tdnn.apply(model_cfg, params, state, batch, mask=mask,
-                         train=False, compute_dtype=_compute_dtype(cfg))
-        return (softmax_ce(out["logits"], labels, weight),
-                accuracy(out["logits"], labels, weight))
+                         train=False, compute_dtype=_compute_dtype(cfg),
+                         skip_head=sharded)
+        if sharded:
+            return local_sharded_softmax_ce(
+                out["hidden"], params["output"]["w"], params["output"]["b"],
+                labels, mesh, row_weight=weight, data_group=group)
+        return (softmax_ce(out["logits"], labels, weight, group),
+                accuracy(out["logits"], labels, weight, group))
 
     return step
 
 
 class Trainer:
     """Iteration-structured trainer over materialised archives, on one
-    device (``"cuda"`` unless the caller asks for ``"cpu"``)."""
+    device (``"cuda"`` unless the caller asks for ``"cpu"``) or, with
+    ``mesh``, as one rank of a mesh, on the mesh's device."""
+
+    # process-local record kinds: one rank's view (it retried, its device
+    # failed, it was preempted), written by that rank with its index
+    _LOCAL_KINDS = ("retry", "forensics", "preempted")
 
     def __init__(self, cfg: TrainConfig, work_dir: str, feat_dim: int = 23,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[meshlib.Mesh] = None):
         if cfg.num_targets <= 0:
             raise ValueError("num_targets must be set")
-        if cfg.head == "sharded_softmax":
-            raise NotImplementedError("head='sharded_softmax' is not ported: "
-                                      "it needs a mesh of several devices")
-        if cfg.head not in ("softmax", "am_softmax"):
+        if cfg.head not in ("softmax", "am_softmax", "sharded_softmax"):
             raise ValueError(f"unknown head {cfg.head!r}")
         if cfg.spmd_step == "shard_map":
             raise NotImplementedError("spmd_step='shard_map' is not ported")
         if cfg.spmd_step != "gspmd":
             raise ValueError(f"unknown spmd_step {cfg.spmd_step!r}")
-        self.device = resolve_device(device)
+        # no mesh: one process, whatever process group it may be in
+        self.mesh = mesh if mesh is not None else meshlib.Mesh(
+            1, 1, 0, resolve_device(device))
+        if (cfg.head == "sharded_softmax"
+                and cfg.num_targets % self.mesh.model):
+            raise ValueError(f"num_targets {cfg.num_targets} not divisible "
+                             f"by model={self.mesh.model}")
+        self.device = resolve_device(self.mesh.device)
         self.cfg = cfg
         self.model_cfg = tdnn.MODEL_ZOO[cfg.model]
         if self.model_cfg.feat_dim != feat_dim:
             self.model_cfg = replace(self.model_cfg, feat_dim=feat_dim)
         self.work_dir = work_dir
         os.makedirs(work_dir, exist_ok=True)
-        self._step_fn = make_train_step(self.model_cfg, cfg)
-        self._block_fn = make_block_train_step(self.model_cfg, cfg)
+        self._step_fn = make_train_step(self.model_cfg, cfg, self.mesh)
+        self._block_fn = make_block_train_step(self.model_cfg, cfg,
+                                               mesh=self.mesh)
         self._block_dense_fn = (make_block_train_step(self.model_cfg, cfg,
-                                                      dense=True)
+                                                      dense=True,
+                                                      mesh=self.mesh)
                                 if cfg.dense_fastpath else None)
-        self._eval_fn = make_eval_step(self.model_cfg, cfg)
+        self._eval_fn = make_eval_step(self.model_cfg, cfg, self.mesh)
         self._metrics_path = os.path.join(work_dir, "metrics.jsonl")
         self._log_lock = threading.Lock()   # train + diagnostics threads
         self._dropout_points = schedules.parse_dropout_schedule(
@@ -267,11 +322,22 @@ class Trainer:
         params, state = tdnn.init_params(
             torch.Generator().manual_seed(cfg.random_seed), self.model_cfg,
             cfg.num_targets, device=self.device)
-        self.set_params(params, state)
+        self._place_all(params, state)
+
+    def _place_all(self, params, state):
+        """Install whole ``(params, state)`` trees: every rank takes rank
+        0's bits, and a sharded head keeps this rank's columns."""
+        layout = (meshlib.param_shardings(self.mesh, params)
+                  if self.cfg.head == "sharded_softmax"
+                  else meshlib.replicated(self.mesh))
+        self.set_params(meshlib.put_global(params, layout),
+                        meshlib.put_global(state,
+                                           meshlib.replicated(self.mesh)))
 
     def set_params(self, params, state):
         """Install ``(params, state)`` (trees of tensors on the trainer's
-        device) and start the optimizer afresh, its moments at zero."""
+        device, in this rank's layout) and start the optimizer afresh, its
+        moments at zero."""
         for p in tree_leaves(params):
             p.requires_grad_(True)
         self.params, self.state = params, state
@@ -279,6 +345,14 @@ class Trainer:
             self.cfg.optimizer, tree_leaves(params),
             self.cfg.initial_effective_lrate, momentum=self.cfg.momentum,
             moments_dtype=self.cfg.adam_moments_dtype)
+
+    def _global_rows(self, local_rows: int) -> int:
+        """Valid rows of the GLOBAL minibatch: each rank feeds its own rows
+        of it (the launch contract, ``parallel/launch.
+        host_local_batch_slice``), all valid, and the ranks of one data
+        index the same ones; one rank feeds the whole minibatch.  (The JAX
+        package's ``_pad_rows``: one device per rank needs no padding.)"""
+        return local_rows * self.mesh.data
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.array(a)).to(self.device)
@@ -303,7 +377,8 @@ class Trainer:
         into pinned memory while the current one runs; its float16 bytes
         go to the card and are cast there.  The dropout draws come from a
         generator seeded with ``random_seed + 1000·it`` (a retry's ``attempt``
-        hashed in).
+        and, on a mesh of several data ranks, the rank's data index hashed
+        in).
         ``stop_check`` (e.g. a :class:`~.preemption.GracefulPreemption`) is
         polled before each minibatch; when it fires the iteration is
         abandoned with :class:`~.preemption.PreemptedError` — its partial
@@ -312,11 +387,15 @@ class Trainer:
         and masked blocks and of single steps, and the timer summary."""
         cfg = self.cfg
         seed = cfg.random_seed + 1000 * it
-        if attempt:
-            # a retry draws other dropout masks; the CPU generator keeps
-            # only a seed's low 32 bits, so the attempt is hashed in
-            seed = int(np.random.SeedSequence([seed, attempt])
-                       .generate_state(1)[0])
+        if attempt or self.mesh.data > 1:
+            # a retry draws other dropout masks, and each data rank draws
+            # its own rows' (the ranks of one data index, the same); the
+            # CPU generator keeps only a seed's low 32 bits, so they are
+            # hashed in
+            seed = int(np.random.SeedSequence(
+                [seed, attempt] + ([self.mesh.data_index]
+                                   if self.mesh.data > 1 else []))
+                .generate_state(1)[0])
         gen = torch.Generator(device=self.device).manual_seed(seed)
         keep = 1.0 - dropout
         pending: List[Tuple[Dict[str, torch.Tensor], int]] = []
@@ -333,7 +412,7 @@ class Trainer:
             nr = [int(i[3]) for i in items]
             dense = (self._block_dense_fn is not None
                      and all(t == xs.shape[2] for t in tl)
-                     and all(n == xs.shape[1] for n in nr))
+                     and all(n == xs.shape[1] * self.mesh.data for n in nr))
             return self._pinned(xs), self._pinned(ys), tl, nr, dense
 
         def dispatch(fut):
@@ -354,7 +433,8 @@ class Trainer:
                     raise PreemptedError(f"iteration {it}")
                 key = feats.shape
                 buckets.setdefault(key, []).append(
-                    (feats, labels, true_len, feats.shape[0]))
+                    (feats, labels, true_len,
+                     self._global_rows(feats.shape[0])))
                 if len(buckets[key]) >= cfg.block_size:
                     inflight.append(uploader.submit(stack, buckets.pop(key)))
                     while len(inflight) > 2:
@@ -389,24 +469,53 @@ class Trainer:
                  state=None) -> Dict[str, float]:
         """Loss and accuracy over ``batches`` in eval mode, weighted by
         rows; ``params``/``state`` override the live ones."""
+        return self.evaluate_async(batches, params, state)()
+
+    def evaluate_async(self, batches: Iterable, params=None, state=None):
+        """Run the eval steps over ``batches`` now and return a
+        ``resolve() -> {"loss", "accuracy"}`` closure that reads their
+        results later.
+
+        The multi-rank diagnostics: every rank issues the eval's
+        collectives inline at the iteration boundary, at the same point of
+        its program (a worker thread's timing could order them differently
+        on each rank), and the host reads the numbers one iteration later,
+        so that the device work overlaps the next iteration's host work.
+        The eval's kernels are queued on the stream before the next
+        iteration's in-place updates, which therefore cannot change what
+        they read."""
         params = self.params if params is None else params
         state = self.state if state is None else state
-        tot_loss = tot_acc = tot_w = 0.0
+        parts = []
         for feats, labels, true_len in batches:
-            n_rows = feats.shape[0]
+            n_rows = self._global_rows(feats.shape[0])
             loss, acc = self._eval_fn(
                 params, state, self._upload(feats), self._upload(labels),
                 int(true_len), n_rows)
-            tot_loss += float(loss) * n_rows
-            tot_acc += float(acc) * n_rows
-            tot_w += n_rows
-        return {"loss": tot_loss / max(tot_w, 1),
-                "accuracy": tot_acc / max(tot_w, 1)}
+            parts.append((loss, acc, n_rows))
+
+        def resolve() -> Dict[str, float]:
+            tot_loss = tot_acc = tot_w = 0.0
+            for loss, acc, w in parts:
+                tot_loss += float(loss) * w
+                tot_acc += float(acc) * w
+                tot_w += w
+            return {"loss": tot_loss / max(tot_w, 1),
+                    "accuracy": tot_acc / max(tot_w, 1)}
+
+        return resolve
 
     # -- metrics -----------------------------------------------------------
     def _log(self, record: Dict[str, Any]):
         """Append one record to ``metrics.jsonl`` with a ``time`` field;
-        the training and diagnostics threads both write."""
+        the training and diagnostics threads both write.  Ranks share the
+        work dir: rank 0 writes the global records, and each rank its own
+        ``_LOCAL_KINDS`` records, tagged with ``"process"``."""
+        if self.mesh.size > 1:
+            if (self.mesh.rank != 0
+                    and record.get("kind") not in self._LOCAL_KINDS):
+                return
+            record["process"] = self.mesh.rank
         record["time"] = time.time()
         with self._log_lock, open(self._metrics_path, "a") as f:
             f.write(json.dumps(record, default=str) + "\n")
@@ -435,13 +544,16 @@ class Trainer:
         the clones on the same CUDA stream.  A diagnostics failure
         surfaces at the next iteration boundary; while a training
         exception propagates, it is logged as ``diag_error`` instead of
-        masking it."""
+        masking it.  On a mesh of several ranks there is no worker
+        thread: the diagnostics run inline through
+        :meth:`evaluate_async` and are logged at the next boundary."""
         cfg = self.cfg
         num_iters = cfg.num_epochs * num_archives
         has_diag = (valid_batches is not None
                     or train_subset_batches is not None)
         diag_ex = None
-        if has_diag:
+        deferred: List[Tuple[int, str, Callable]] = []
+        if has_diag and self.mesh.size == 1:
             # the worker makes the trainer's card current before its first
             # CUDA call, which binds the device's primary context (the sm90
             # kernels' cuTensorMapEncodeTiled needs one)
@@ -468,8 +580,21 @@ class Trainer:
                     diag_futures.remove(f)
                     f.result()
 
+        def flush_deferred():
+            for it_, kind, resolve in deferred:
+                self._log({"iteration": it_, "kind": kind, **resolve()})
+            deferred.clear()
+
         def submit_diag(it: int):
-            if diag_ex is None:
+            if not has_diag:
+                return
+            if diag_ex is None:      # several ranks: inline, logged later
+                flush_deferred()     # the previous boundary's diagnostics
+                for kind, fn in (("valid", valid_batches),
+                                 ("train_subset", train_subset_batches)):
+                    if fn is not None:
+                        deferred.append((it, kind,
+                                         self.evaluate_async(fn())))
                 return
             check_diag()
             p = tree_map(lambda t: t.detach().clone(), self.params)
@@ -499,6 +624,7 @@ class Trainer:
                 diag_ex.shutdown(wait=True)
             if sys.exc_info()[0] is None:
                 check_diag(wait=True)
+                flush_deferred()
             else:
                 for f in diag_futures:
                     exc = f.exception()
@@ -514,7 +640,7 @@ class Trainer:
             self._final_combine(combine_set,
                                 train_subset_batches or valid_batches)
         else:
-            checkpoints.mark_final(self.work_dir, num_iters)
+            checkpoints.mark_final(self.work_dir, num_iters, self.mesh)
         return num_iters
 
     def _train_loop(self, start_iter: int, num_iters: int,
@@ -570,7 +696,7 @@ class Trainer:
             checkpoints.save_iteration(self, it + 1)
             checkpoints.collect_garbage(
                 self.work_dir, it + 1, cfg.preserve_model_interval,
-                keep=combine_set)
+                keep=combine_set, mesh=self.mesh)
         return num_iters
 
     @staticmethod
@@ -594,7 +720,13 @@ class Trainer:
         checkpoints on the diagnostics minibatches and install the result
         as ``model_combined`` → ``model_final``.  Each way the fit can be
         skipped is logged under its own reason, and ``model_final`` then
-        points at the newest complete iteration."""
+        points at the newest complete iteration.
+
+        On a mesh of several ranks every rank loads the candidates whole;
+        rank 0 alone fits the weights on its own diagnostics rows, with no
+        collective, and broadcasts them with a flag that says its rows
+        were empty, so that no peer waits in a collective rank 0 skips;
+        every rank then applies the same weights to the same trees."""
         available = {it: path
                      for it, path in checkpoints.iteration_dirs(self.work_dir)
                      if checkpoints.is_complete(path)}
@@ -603,31 +735,53 @@ class Trainer:
         def skip(reason: str):
             self._log({"kind": "combine_skipped", "reason": reason})
             checkpoints.mark_final(self.work_dir,
-                                   max(available) if available else 0)
+                                   max(available) if available else 0,
+                                   self.mesh)
 
         if not cands:
             return skip("no complete candidate checkpoints")
         if batches_fn is None:
             return skip("no diagnostics batches provided")
-        batches = self._uniform_shape_batches(
-            (f, l, t, f.shape[0]) for f, l, t in batches_fn())
-        if not batches:
-            return skip("diagnostics batches yielded no data")
         t0 = time.monotonic()
+        multi = self.mesh.size > 1
+        batches = [] if multi and self.mesh.rank else \
+            self._uniform_shape_batches(
+                (f, l, t, f.shape[0]) for f, l, t in batches_fn())
+        if not multi and not batches:
+            return skip("diagnostics batches yielded no data")
         loaded = [checkpoints.load_pytrees(self, available[it])
                   for it in cands]
-        params, state, info = combine.optimize_combination(
-            self.model_cfg, [p for p, _ in loaded], [s for _, s in loaded],
-            batches, compute_dtype=_compute_dtype(self.cfg),
-            steps=self.cfg.combine_opt_steps)
+        info: Dict[str, Any] = {}
+        if batches:
+            params, state, info = combine.optimize_combination(
+                self.model_cfg, [p for p, _ in loaded],
+                [s for _, s in loaded], batches,
+                compute_dtype=_compute_dtype(self.cfg),
+                steps=self.cfg.combine_opt_steps)
+        if multi:
+            # rank 0's answer for every rank: [no data, weights...]
+            answer = torch.zeros(len(cands) + 1, dtype=torch.float32,
+                                 device=self.device)
+            if self.mesh.rank == 0:
+                if batches:
+                    answer[1:] = torch.tensor(info["weights"])
+                else:
+                    answer[0] = 1.0
+            answer = meshlib.broadcast_tree(answer, self.mesh.world_group)
+            if answer[0]:
+                return skip("diagnostics batches yielded no data")
+            weights = answer[1:]
+            info = {**info, "weights": weights.cpu().tolist()}
+            params = combine.combine_pytrees([p for p, _ in loaded], weights)
+            state = combine.combine_pytrees([s for _, s in loaded], weights)
         if not np.all(np.isfinite(info["weights"])):
             return skip("non-finite combination weights")
         # the combined model keeps the last iteration's optimizer state, as
         # the JAX package's model_combined does
         opt_state = self.optimizer.state_dict()
-        self.set_params(params, state)
+        self._place_all(params, state)
         self.optimizer.load_state_dict(opt_state)
         checkpoints.save_named(self, "model_combined")
-        checkpoints.mark_final(self.work_dir, "model_combined")
+        checkpoints.mark_final(self.work_dir, "model_combined", self.mesh)
         self._log({"kind": "combine", "iterations": cands, **info,
                    "seconds": time.monotonic() - t0})
