@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's extraction, training, wave, scoring, recipe,
-SRE16 recipe and multi-rank paths on one GPU.
+SRE16 recipe and multi-rank paths on one GPU, and the entry points on
+every GPU of the machine.
 
 Run from the repository root (one card, no arguments needed):
 
@@ -225,6 +226,41 @@ Phases; any failure raises and the exit code is non-zero:
    ``seq_sharded_xvector``; K2-K4 at the 32x304 a rank gives them, each
    first held against its plain version at that shape.
 
+16. the entry points on every card of the call (``parallel/launch``):
+   on a call with W >= 2 cards the entry point, given no launch
+   variables, starts one NCCL rank per card itself; on a call with one
+   card, this script starts 2 gloo ranks that share it through the
+   launch variables (``XVEC_*``, ``XVEC_BACKEND=gloo``), and says so.
+   Each run goes through ``MR_CHILD`` (``mr_child``), which calls the
+   entry point's ``main`` with its flags and records each process's
+   kernel launches and start time.  Part A: ``cli.train_dnn`` at full
+   ``no_dropout`` width (64x304x23 minibatches, 7,185 classes), 2
+   archives of 1 minibatch, 2 iterations, SGD from carried weights
+   (``model_0``), in f32 and in bf16, each on the ranks and on one
+   process: f32 ``model_final`` within 1e-5 max |diff|; bf16 final loss
+   within 1e-2 relative, the update's cosine over all parameters >= 0.98,
+   and per leaf the ranks' first update against the exact (f32) one at
+   0.98 or, where one process's bf16 update lies farther from it, at one
+   process's cosine squared (two bf16 runs that round differently part
+   by up to ~7% per leaf, as far as one process's bf16 update lies from
+   the f32 one); K2-K4
+   twice per step on every rank, all "sm90", and each rank holds them
+   against their plain versions at every shape it trained at.  Part B:
+   ``cli.run`` (16 speakers x 6 utterances, bf16) on one process and on
+   the ranks (on one card: 3 gloo ranks, on W cards: W NCCL ranks and, where
+   W > 3, 3 of them), whose 8-row minibatches 3 does not divide: rank 0
+   alone extracts (K1 v4 + v5), every rank trains through K2-K4 and
+   holds them against their plain versions at every shape it trained at
+   (rows per rank x padded chunk length), the EER
+   within one target trial of one process's, and rank 0's x-vectors
+   within phase 4's cosine bound of the unfused bf16 stack on the same
+   features.  Part C, on a call with W >= 2 cards: ``cli.train_dnn``
+   bf16 with Adam over 3 archives of 16 minibatches on the W cards and
+   on one: ms per global minibatch (iteration 1), and per rank, from a
+   profile of iteration 2, the device's idle share, the NCCL kernels'
+   time and the gradient all-reduce's share of the step, and process
+   start; on one card one line says why it did not run.
+
 The line before the last is ``{"kernels": [...]}`` (K1 and K2-K4 in the
 main path's designs, and rows for the "sm80" designs with their main-path
 launch counts, each with its launches over the CLI phase as
@@ -233,7 +269,10 @@ extraction stages for K1) as ``recipe_launches``, over run_sre16's
 runs (training for K2-K4, both runs' extraction for K1) as
 ``sre16_launches`` and over phase 15's multi-rank run (its straight run's
 training for K2-K4, its sharded extraction for K1, summed over the ranks)
-as ``mc_launches``, and K1's over the wave phase as ``wave_launches``);
+as ``mc_launches``, over phase 16's multi-rank runs (training for K2-K4,
+rank 0's extraction for K1, summed over the ranks) as
+``multicard_launches``, and K1's over the wave phase as
+``wave_launches``);
 the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full f32
 (``torch.backends.cuda.matmul.allow_tf32 = False``) so the plain versions
@@ -3098,9 +3137,10 @@ SRE16_TESTS = 2              # test segments per eval speaker
 SRE16_MAJOR_SPEAKERS = 24    # unlabeled majors: 2 segments each, 16 kHz
 SRE16_SECONDS = (9.0, 12.0)  # every utterance: > 500 voiced frames
 SRE16_EPOCHS = 1
-SRE16_NUM_REPEATS = 35       # run_sre16's default (run_xvector.sh:62)
-# ~4 archives of ~400 minibatches over the augmented training list
-SRE16_FRAMES_PER_ITER = 8_000_000
+SRE16_NUM_REPEATS = 20       # cut from run_sre16's default 35
+# (run_xvector.sh:62) to keep the script's time as phase 16 joined it:
+# ~4 archives of ~230 minibatches over the augmented training list
+SRE16_FRAMES_PER_ITER = 4_600_000
 SRE16_EER_BOUND = 0.25       # out-of-domain, far below chance (0.5)
 SRE16_AUG = ("reverb", "noise", "music", "babble")
 SRE16_SWBD_BASE = 40100      # conversation ids clear of the bad-audio lists
@@ -4128,6 +4168,529 @@ def phase_mc(TR, TA, CB, TK, dev, seed, tag, tmp):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 16. the entry points on every card of the call
+# ---------------------------------------------------------------------------
+
+MR_ARCHIVES = 2              # part A: 2 archives x 1 full 64x304 minibatch,
+MR_MINIBATCHES = 1           # 1 epoch: 2 steps (bf16 runs part after more)
+MR_LR = 1e-3
+MR_F32_BOUND = 1e-5          # f32 SGD model_final, W ranks vs 1, max |diff|
+MR_TIMING_ARCHIVES = 3       # part C: iteration 0 warms, 1 is timed, 2 is
+MR_TIMING_FULL = 16          # profiled; 16 full minibatches each, block 16
+MR_TIMEOUT = 300             # seconds per run of an entry point
+MR_GLOO_RANKS = 2            # part A on a one-card call
+MR_PAD_RANKS = 3             # part B's padded run: 8-row minibatches
+MR_CHILD = r"""
+import chip_smoke
+chip_smoke.mr_child()
+"""
+
+
+def mr_child():
+    """One process of a phase-16 run of an entry point: ``python
+    <MR_CHILD> <module> <flags...>``, as the launching process, as one of
+    the ranks it starts (the same command line) or as a single process.
+    It runs ``<module>.main()`` and writes ``proc_<rank>.json`` (``main``
+    for a process without ``XVEC_PROCESS_ID``) into ``$SMOKE_OUT``: the
+    kernel wrappers' launch counts, the seconds from ``$SMOKE_T0`` to
+    here (process start), the (rows, frames) shapes K2 ran at, and on
+    request (``$SMOKE_CHECK``) K2-K4 held against their plain versions at
+    each of those shapes, and (``$SMOKE_PROFILE_IT``) a profile of that
+    iteration; with ``$SMOKE_SGD`` the entry point's ``TrainConfig``
+    trains with SGD."""
+    import importlib
+    from functools import partial
+
+    from xvector_tpu_torch.ops import conv_bwd as CB
+    from xvector_tpu_torch.ops import tdnn_kernel as TK
+    from xvector_tpu_torch.train import trainer as TR
+
+    module = sys.argv[1]
+    rank = os.environ.get("XVEC_PROCESS_ID", "main")
+    out = {"start_s": time.time() - float(os.environ["SMOKE_T0"])}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mod = importlib.import_module(module)
+    if os.environ.get("SMOKE_SGD"):
+        mod.TrainConfig = partial(mod.TrainConfig, optimizer="sgd",
+                                  momentum=0.5)
+    profile_it = int(os.environ.get("SMOKE_PROFILE_IT", "-1"))
+    if profile_it >= 0:
+        TR.Trainer.train_one_iteration = _profiled(
+            TR.Trainer.train_one_iteration, profile_it, out)
+    shapes, conv_fwd = set(), CB.conv_fwd
+
+    def recorded(x, w, dilation, **kw):
+        shapes.add(tuple(x.shape[:2]))
+        return conv_fwd(x, w, dilation, **kw)
+
+    CB.conv_fwd = recorded
+    sys.argv = [module] + sys.argv[2:]
+    if "XVEC_NUM_PROCESSES" not in os.environ:
+        # the ranks this process may start count their start from here
+        os.environ["SMOKE_T0"] = repr(time.time())
+    result = mod.main()
+    CB.conv_fwd = conv_fwd
+    out["conv"], out["k1"] = dict(CB.route_launches), dict(TK.route_launches)
+    out["shapes"] = sorted(shapes)
+    if result is not None:
+        out["result"] = {k: v for k, v in result.items()
+                         if k in ("eer", "min_dcf", "num_trials")}
+    if os.environ.get("SMOKE_CHECK") and shapes:
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if torch.cuda.is_available() else torch.device("cpu"))
+        out["conv_check"] = {f"{b}x{t}": mr_conv_check(CB, dev, b, t)
+                             for b, t in sorted(shapes)}
+    with open(os.path.join(os.environ["SMOKE_OUT"],
+                           f"proc_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _profiled(one_iteration, profile_it, out):
+    """``Trainer.train_one_iteration`` that runs iteration ``profile_it``
+    under ``torch.profiler`` and records, per minibatch, the host wall
+    time, the device's busy time (the union of its kernels' intervals)
+    and the NCCL kernels' time, with the largest NCCL kernel's median."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(self, it, *args, **kwargs):
+        if it != profile_it:
+            return one_iteration(self, it, *args, **kwargs)
+        torch.cuda.synchronize(self.device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            stats = one_iteration(self, it, *args, **kwargs)
+            torch.cuda.synchronize(self.device)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy, end = 0.0, -math.inf
+        for s, e, _ in spans:
+            if e > end:
+                busy += e - max(s, end)
+                end = e
+        nccl = [e - s for s, e, name in spans if "nccl" in name.lower()]
+        n = stats["minibatches"]
+        out["profile"] = {
+            "minibatches": n, "wall_ms": wall_us / n / 1e3,
+            "busy_ms": busy / n / 1e3, "device_events": len(spans),
+            "nccl_ms": sum(nccl) / n / 1e3, "nccl_kernels": len(nccl),
+            "nccl_largest_ms": (statistics.median(sorted(nccl)[-int(n):])
+                                / 1e3 if nccl else 0.0)}
+        return stats
+
+    return run
+
+
+def mr_conv_check(CB, dev, rows, frames):
+    """K2, K3 and K4 ("sm90") against their plain versions at the rows x
+    frames one rank trains on, k=5 and 7, 512 -> 512: the largest
+    normalised error of each (bounds ``KERNEL_BOUND``, ``DW_BOUND`` for
+    K3)."""
+    errs = {}
+    for k in (5, 7):
+        x, w, g = conv_inputs(rows, frames, 512, 512, k, dev, 160 + k)
+        for name, kern, plain in (
+                ("K2", lambda: CB.conv_fwd(x, w, 1),
+                 lambda: CB.conv_fwd_reference(x, w, 1)),
+                ("K3", lambda: CB.conv_dw(x, g, k, 1),
+                 lambda: CB.conv_dw_reference(x, g, k, 1)),
+                ("K4", lambda: CB.conv_dx(g, w, 1),
+                 lambda: CB.conv_dx_reference(g, w, 1))):
+            got, want = kern(), plain()
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                errs[name] = math.inf
+            else:
+                errs[name] = max(errs.get(name, 0.0), norm_err(got, want)[1])
+    return errs
+
+
+def mr_check_convs(label, trained):
+    """Each training process's K2-K4 against their plain versions at every
+    (rows, frames) shape its K2 ran at; a process with no check, or a
+    kernel past ``KERNEL_BOUND`` (``DW_BOUND`` for K3), fails."""
+    for r in sorted(trained):
+        checks = trained[r].get("conv_check")
+        if not checks:
+            fail(f"multicard {label} rank {r}: no K2-K4 check was made")
+        worst = {k: max(c[k] for c in checks.values())
+                 for k in ("K2", "K3", "K4")}
+        print(f"multicard {label} rank {r}: K2-K4 against the plain "
+              f"versions at its {len(checks)} shape(s) "
+              f"{', '.join(sorted(checks))}: worst "
+              + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+              + f" (bounds {KERNEL_BOUND}, K3 {DW_BOUND})")
+        if (worst["K2"] > KERNEL_BOUND or worst["K4"] > KERNEL_BOUND
+                or worst["K3"] > DW_BOUND):
+            fail(f"multicard {label} rank {r}: a kernel disagrees with its "
+                 "plain version")
+
+
+def mr_env(out, **extra):
+    """The environment of a run: no launch variables unless ``extra``
+    sets them, this repository on ``PYTHONPATH``, outputs in ``out``."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("XVEC_") and not k.startswith("SMOKE_")}
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(SMOKE_OUT=out, SMOKE_T0=repr(time.time()), **extra)
+    return env
+
+
+def mr_run(module, flags, out, ranks, tmp, **extra):
+    """One run of ``module``'s entry point through ``MR_CHILD``:
+    ``ranks`` None lets the entry point start one NCCL rank per visible
+    card itself (no launch variables); 1 is a single process; k > 1 is k
+    gloo ranks that this process starts through the launch contract, all
+    on the one card.  Returns (the processes' records by rank, seconds).
+    A failed rank fails the run."""
+    from xvector_tpu_torch.parallel import launch
+    os.makedirs(out, exist_ok=True)
+    script = os.path.join(tmp, "mr_child.py")
+    with open(script, "w") as f:
+        f.write(MR_CHILD)
+    t0 = time.perf_counter()
+    if ranks is not None and ranks > 1:
+        saved, env = dict(os.environ), mr_env(out, XVEC_BACKEND="gloo",
+                                              **extra)
+        os.environ.clear()
+        os.environ.update(env)
+        try:
+            launch.spawn_local_ranks([script, module, *flags], out,
+                                     world=ranks, timeout=MR_TIMEOUT)
+        finally:
+            os.environ.clear()
+            os.environ.update(saved)
+    else:
+        env = mr_env(out, **extra)
+        if ranks == 1:
+            env["XVEC_NUM_PROCESSES"] = "1"
+        # a session of its own: a timeout stops the ranks it started too
+        proc = subprocess.Popen([sys.executable, script, module, *flags],
+                                cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=MR_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            print(stdout[-3000:])
+            print(stderr[-6000:], file=sys.stderr)
+            fail(f"multicard: {module} {' '.join(flags)} exited "
+                 f"{proc.returncode}")
+    secs = time.perf_counter() - t0
+    recs = {}
+    for name in os.listdir(out):
+        if name.startswith("proc_") and name.endswith(".json"):
+            with open(os.path.join(out, name)) as f:
+                recs[name[5:-5]] = json.load(f)
+    return recs, secs
+
+
+def mr_ranks(recs):
+    """The records of the processes that trained: the ranks, or the one
+    process of a single-process run."""
+    ranks = {k: v for k, v in recs.items() if k != "main"}
+    return ranks or recs
+
+
+def mr_final(work):
+    """(params and BN state of ``model_final``, params of ``model_1``, the
+    first update's result, as CPU tensors; the last iteration's training
+    loss)."""
+    from xvector_tpu_torch.models.convert import tree_leaves
+
+    def leaves(name, parts):
+        ckpt = torch.load(os.path.join(os.path.realpath(
+            os.path.join(work, name)), "ckpt.pt"), map_location="cpu",
+            weights_only=True)
+        return [t for part in parts for t in tree_leaves(ckpt[part])]
+
+    loss = [r["loss"] for r in read_metrics(work)
+            if r.get("kind") == "train"][-1]
+    return (leaves("model_final", ("params", "state")),
+            leaves("model_1", ("params",)), loss)
+
+
+def phase_multicard(TR, TA, kio, dev, seed, tag, tmp):
+    """Phase 16: parts A-C (see the module docstring).  Returns the kernel
+    launches of its multi-rank runs, summed over their ranks."""
+    import shutil
+
+    from xvector_tpu_torch.cli.run import _read_scp
+    from xvector_tpu_torch.extract.extractor import (ExtractorConfig,
+                                                     XvectorExtractor,
+                                                     preprocess)
+    from xvector_tpu_torch.models import tdnn as tt
+    from xvector_tpu_torch.models.convert import tree_leaves
+    from xvector_tpu_torch.train import checkpoints as C
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    multi = None if cards >= 2 else MR_GLOO_RANKS
+    world = cards if multi is None else MR_GLOO_RANKS
+    how = (f"{cards} NCCL ranks, one per card, started by the entry point"
+           if multi is None else
+           f"{world} gloo ranks sharing the call's one card through the "
+           "launch variables")
+    print(f"multicard: the call has {cards} card(s); multi-rank runs: {how}")
+    launches = {"conv": {}, "k1": {}}
+
+    def add(recs):
+        for r in mr_ranks(recs).values():
+            for key in ("conv", "k1"):
+                for name, n in r[key].items():
+                    launches[key][name] = launches[key].get(name, 0) + n
+
+    # part A: cli.train_dnn, W ranks against 1, f32 then bf16 SGD
+    egs = os.path.join(tmp, "mr_egs")
+    os.makedirs(egs)
+    for a in range(MR_ARCHIVES):
+        write_train_archive(TA, os.path.join(egs, f"egs.{a}.xta"),
+                            seed + 160 + a, 23, full=MR_MINIBATCHES,
+                            ragged=False)
+    _, p0, s0 = model(tt, "no_dropout", seed + 165, TRAIN_CLASSES, dev)
+    src = os.path.join(tmp, "mr_model0")
+    tr = TR.Trainer(mc_step_cfg(TR, seed, "float32"), src, device=dev)
+    tr._place_all(p0, s0)
+    C.save_iteration(tr, 0)
+    init = [t.detach().cpu() for t in tree_leaves(tr.params)]
+    del tr
+    steps = MR_ARCHIVES * MR_MINIBATCHES
+    local_rows = -(-TRAIN_B // world)        # padded to a multiple of W
+    n = len(init)
+
+    def update_cosines(a_leaves, b_leaves):
+        """The cosine of two updates from ``init``: all parameters as one
+        vector, and each leaf's."""
+        da = [(a - w).double().flatten() for a, w in zip(a_leaves, init)]
+        db = [(b - w).double().flatten() for b, w in zip(b_leaves, init)]
+        return (float(F.cosine_similarity(torch.cat(da), torch.cat(db),
+                                          dim=0)),
+                {nm: float(F.cosine_similarity(u, v, dim=0))
+                 for nm, u, v in zip(leaf_names(p0), da, db)})
+
+    for dtype in ("float32", "bfloat16"):
+        runs = {}
+        for label, ranks in (("w", multi), ("one", 1)):
+            work = os.path.join(tmp, f"mr_{dtype}_{label}")
+            os.makedirs(work)
+            shutil.copytree(C.iteration_path(src, 0),
+                            C.iteration_path(work, 0))
+            flags = ["--model=no_dropout", f"--num-targets={TRAIN_CLASSES}",
+                     "--num-epochs=1", f"--compute-dtype={dtype}",
+                     f"--egs-dir={egs}", f"--dir={work}", "--block-size=2",
+                     f"--initial-effective-lrate={MR_LR}",
+                     f"--final-effective-lrate={MR_LR}",
+                     f"--device={dev.type}"]
+            recs, secs = mr_run(
+                "xvector_tpu_torch.cli.train_dnn", flags, work + "_out",
+                ranks, tmp, SMOKE_SGD="1",
+                **({"SMOKE_CHECK": "1"} if label == "w" else {}))
+            runs[label] = (recs, secs) + mr_final(work)
+        ((recs, secs, got, got1, loss),
+         (one_recs, one_secs, want, want1, loss1)) = runs["w"], runs["one"]
+        ranks_w = mr_ranks(recs)
+        if len(ranks_w) != world:
+            fail(f"multicard part A {dtype}: {len(ranks_w)} ranks reported, "
+                 f"expected {world}")
+        print(f"multicard part A cli.train_dnn {dtype} SGD, {world} ranks: "
+              f"{secs:.1f} s (one rank {one_secs:.1f} s); final loss "
+              f"{loss:.6f} vs one rank {loss1:.6f}; process start "
+              + ", ".join(f"{ranks_w[r]['start_s']:.2f}"
+                          for r in sorted(ranks_w)) + f" s [{tag}]")
+        if dtype == "float32":
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            print(f"multicard part A f32 model_final, {world} ranks vs 1: "
+                  f"max |diff| {err:.3g} (bound {MR_F32_BOUND})")
+            if err > MR_F32_BOUND:
+                fail("multicard part A: the f32 model_final of the ranks "
+                     "differs from one rank's")
+            exact1 = want1            # the exact first update (f32)
+            continue
+        # Two correct bf16 runs whose roundings differ anywhere part by up
+        # to ~7% per leaf after one step, ranks or not: one process's bf16
+        # update is itself that far from the exact f32 one on these inputs
+        # (bench/bf16_ranks.py; phase 15's inputs happen to round alike on
+        # 1 and 2 ranks).  So each leaf of the ranks' first update is held
+        # against the exact one at TRAIN_COSINE_BOUND or, where one
+        # process's bf16 update lies farther from it, at one process's
+        # cosine squared (an angle up to ~sqrt(2) times one process's).
+        cos, final = update_cosines(got[:n], want[:n])
+        _, first = update_cosines(got1, want1)
+        _, acc_w = update_cosines(got1, exact1)
+        _, acc_1 = update_cosines(want1, exact1)
+        bound = {nm: min(TRAIN_COSINE_BOUND, c * c)
+                 for nm, c in acc_1.items()}
+        worst = min(acc_w, key=lambda nm: acc_w[nm] - bound[nm])
+        rel = abs(loss - loss1) / abs(loss1)
+        print(f"multicard part A bf16, {world} ranks vs 1: final loss "
+              f"relative {rel:.3g} (bound {TRAIN_LOSS_BOUND}); update cosine "
+              f"{cos:.6f} (bound {TRAIN_COSINE_BOUND}), per leaf min "
+              f"{min(final.values()):.4f} ({min(final, key=final.get)}); "
+              f"first update per leaf min {min(first.values()):.4f} "
+              f"({min(first, key=first.get)}), median "
+              f"{statistics.median(first.values()):.4f}")
+        print(f"multicard part A bf16 first update against the exact (f32) "
+              f"one, per leaf: {world} ranks min {min(acc_w.values()):.4f} "
+              f"({min(acc_w, key=acc_w.get)}), median "
+              f"{statistics.median(acc_w.values()):.4f}; one process min "
+              f"{min(acc_1.values()):.4f} ({min(acc_1, key=acc_1.get)}), "
+              f"median {statistics.median(acc_1.values()):.4f}; closest to "
+              f"its bound: {worst} {acc_w[worst]:.4f} (bound "
+              f"{bound[worst]:.4f})")
+        if (rel > TRAIN_LOSS_BOUND or cos < TRAIN_COSINE_BOUND
+                or acc_w[worst] < bound[worst]):
+            fail("multicard part A: the bf16 run of the ranks differs from "
+                 "one rank's")
+        want_calls = {f"{k}_{d}": 2 * steps if d == "sm90" else 0
+                      for k in ("fwd", "dw", "dx") for d in ("sm90", "sm80")}
+        for r in sorted(ranks_w):
+            print(f"multicard part A rank {r}: K2-K4 calls "
+                  f"{ranks_w[r]['conv']} at {ranks_w[r]['shapes']}")
+            if ranks_w[r]["conv"] != want_calls:
+                fail(f"multicard part A rank {r}: K2-K4 calls are not "
+                     f"{want_calls}")
+            if ranks_w[r]["shapes"] != [[local_rows, TRAIN_T]]:
+                fail(f"multicard part A rank {r}: K2 ran at "
+                     f"{ranks_w[r]['shapes']}, not {local_rows}x{TRAIN_T}")
+        mr_check_convs("part A", ranks_w)
+        add(recs)
+
+    # part B: cli.run on the ranks against one process
+    base = [f"--synthetic-speakers={RECIPE_CLI_SPEAKERS}",
+            f"--synthetic-utts={RECIPE_CLI_UTTS}", "--model=no_dropout",
+            f"--device={dev.type}"]
+    step = 1.0 / (RECIPE_CLI_SPEAKERS * RECIPE_CLI_UTTS // 2)
+    b_runs = [("one", 1, {})]
+    if multi is None:
+        b_runs.append((f"{cards} NCCL", None, {}))
+        if cards > MR_PAD_RANKS:
+            b_runs.append((f"{MR_PAD_RANKS} NCCL", None, {
+                "CUDA_VISIBLE_DEVICES": ",".join(
+                    str(i) for i in range(MR_PAD_RANKS))}))
+    else:
+        b_runs.append((f"{MR_PAD_RANKS} gloo", MR_PAD_RANKS, {}))
+    results = {}
+    for label, ranks, extra in b_runs:
+        work = os.path.join(tmp, f"mr_run_{label.replace(' ', '_')}")
+        recs, secs = mr_run("xvector_tpu_torch.cli.run",
+                            [f"--work-dir={work}", *base], work + "_out",
+                            ranks, tmp, SMOKE_CHECK="1", **extra)
+        trained = mr_ranks(recs)
+        top = recs.get("0") or recs["main"]
+        res = top["result"]
+        results[label] = res
+        print(f"multicard part B cli.run, {label} rank(s) ({len(trained)} "
+              f"reported): {secs:.1f} s, EER {res['eer']:.4f} "
+              f"({res['num_trials']} trials); K1 on rank 0 {top['k1']}; "
+              f"K2-K4 per rank {[trained[r]['conv'] for r in sorted(trained)]}"
+              f" [{tag}]")
+        k1 = top["k1"]
+        if not k1["sm90"] == 4 * k1["sm80"] > 0:
+            fail(f"multicard part B {label}: rank 0 did not extract through "
+                 "K1")
+        for r in trained.values():
+            c = r["conv"]
+            if not c["fwd_sm90"] == c["dw_sm90"] == c["dx_sm90"] > 0:
+                fail(f"multicard part B {label}: a rank did not train "
+                     "through K2-K4")
+            if r is not top and sum(r["k1"].values()):
+                fail(f"multicard part B {label}: a rank other than 0 "
+                     "extracted")
+        mr_check_convs(f"part B {label}", trained)
+        if label == "one":
+            continue
+        add(recs)
+        gap = abs(res["eer"] - results["one"]["eer"])
+        print(f"multicard part B {label}: EER {res['eer']:.4f} vs one rank "
+              f"{results['one']['eer']:.4f} (bound one target trial, "
+              f"{step:.4f})")
+        if gap > step + 1e-9:
+            fail(f"multicard part B {label}: the EER moved by more than "
+                 "one trial")
+        # rank 0's K1 x-vectors against the unfused stack on its inputs
+        ckpt = torch.load(os.path.join(os.path.realpath(os.path.join(
+            work, "exp", "model_final")), "ckpt.pt"), map_location=dev,
+            weights_only=True)
+        cfg = tt.MODEL_ZOO["no_dropout"]
+        feats = _read_scp(os.path.join(work, "feats_all.ark.scp"))
+        vads = _read_scp(os.path.join(work, "vad_all.ark.scp"))
+        xv = dict(kio.read_vec_flt_scp(os.path.join(work,
+                                                    "xvector_all.scp")))
+        utts = sorted(xv)[:16]
+        ex = XvectorExtractor(cfg, ckpt["params"], ckpt["state"],
+                              ExtractorConfig(min_chunk=25, max_chunk=400,
+                                              batch_size=8,
+                                              compute_dtype="bfloat16",
+                                              use_fused=False), device=dev)
+        plain = ex.extract([(u, preprocess(
+            kio.read_mat(feats[u]), 300, kio.read_vec_flt(vads[u]),
+            device=dev)) for u in utts])
+        cos = min(cosine(xv[u], plain[u]) for u in utts)
+        print(f"multicard part B {label}: rank 0's K1 x-vectors vs the "
+              f"unfused bf16 stack on {len(utts)} utterances: cosine min "
+              f"{cos:.6f} (bound {COSINE_BOUND})")
+        if cos < COSINE_BOUND:
+            fail(f"multicard part B {label}: rank 0's K1 x-vectors differ "
+                 "from the unfused stack")
+
+    # part C: the NCCL run measured end to end
+    if multi is not None:
+        print(f"multicard part C: not run: the call has {cards} card, and "
+              "NCCL takes one card per rank")
+    else:
+        egs = os.path.join(tmp, "mr_timing_egs")
+        os.makedirs(egs)
+        for a in range(MR_TIMING_ARCHIVES):
+            write_train_archive(TA, os.path.join(egs, f"egs.{a}.xta"),
+                                seed + 170 + a, 23, full=MR_TIMING_FULL,
+                                ragged=False)
+        timing = {}
+        for label, ranks in ((f"{cards} cards", None), ("one card", 1)):
+            work = os.path.join(tmp, f"mr_timing_{label.replace(' ', '_')}")
+            flags = ["--model=no_dropout", f"--num-targets={TRAIN_CLASSES}",
+                     "--num-epochs=1", f"--egs-dir={egs}", f"--dir={work}",
+                     f"--device={dev.type}"]
+            recs, secs = mr_run("xvector_tpu_torch.cli.train_dnn", flags,
+                                work + "_out", ranks, tmp,
+                                SMOKE_PROFILE_IT="2")
+            it1 = [r for r in read_metrics(work)
+                   if r.get("kind") == "train" and r["iteration"] == 1][0]
+            ms = it1["seconds"] / it1["minibatches"] * 1e3
+            timing[label] = ms
+            trained = mr_ranks(recs)
+            for r in sorted(trained):
+                p = trained[r]["profile"]
+                print(f"timing multicard {label} rank {r}: profiled "
+                      f"iteration {p['wall_ms']:.2f} ms per minibatch, "
+                      f"device busy {p['busy_ms']:.2f} ms = "
+                      f"{1 - p['busy_ms'] / p['wall_ms']:.1%} idle; NCCL "
+                      f"kernels {p['nccl_ms']:.3f} ms per minibatch "
+                      f"({p['nccl_kernels']} kernels, largest "
+                      f"{p['nccl_largest_ms']:.3f} ms = "
+                      f"{p['nccl_largest_ms'] / p['wall_ms']:.1%} of the "
+                      f"step); process start {trained[r]['start_s']:.2f} s "
+                      f"[{tag}, {cards} cards]")
+            if ranks is None:
+                add(recs)
+            print(f"timing multicard cli.train_dnn bf16 Adam {label}: "
+                  f"{ms:.2f} ms per global 64x304 minibatch (iteration 1, "
+                  f"{it1['minibatches']} minibatches, "
+                  f"{TRAIN_B * TRAIN_T / FRAMES_PER_SECOND / ms * 1e3:.1f} "
+                  f"audio-s/s); run {secs:.1f} s [{tag}, {cards} cards]")
+        many = timing[f"{cards} cards"]
+        print(f"timing multicard: {cards} cards {many:.2f} ms against one "
+              f"card {timing['one card']:.2f} ms per global minibatch "
+              f"({timing['one card'] / many:.2f}x) [{tag}, {cards} cards]")
+    print(f"multicard: phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4152,6 +4715,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    # phases 1-15 drive one card, also on a call with several: the entry
+    # points they call in this process are one process each
+    os.environ["XVEC_NUM_PROCESSES"] = "1"
     card = card_line()
     print(card)   # exactly as nvidia-smi gives it
     tag = card
@@ -4228,6 +4794,10 @@ def main(argv=None) -> int:
     # 15. the multi-rank paths: several ranks on the one card
     with tempfile.TemporaryDirectory() as tmp:
         mc = phase_mc(TR, TA, CB, TK, dev, args.seed, tag, tmp)
+
+    # 16. the entry points on every card of the call
+    with tempfile.TemporaryDirectory() as tmp:
+        multicard = phase_multicard(TR, TA, kio, dev, args.seed, tag, tmp)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the device "
           f"check to here")
 
@@ -4272,6 +4842,10 @@ def main(argv=None) -> int:
             # extraction (phase 15 part 1, summed over its ranks)
             "mc_launches": mc["k1"].get("sm90" if key == "rule" else "sm80",
                                         0),
+            # ... and over phase 16's multi-rank runs of cli.run (rank 0's
+            # extraction)
+            "multicard_launches": multicard["k1"].get(
+                "sm90" if key == "rule" else "sm80", 0),
             **({"launches_by_design": main_routes} if key == "rule" else {}),
         })
     # K2-K4: the main path makes one k=5 and one k=7 call of each per
@@ -4304,6 +4878,9 @@ def main(argv=None) -> int:
             # ... and over the multi-rank run's training (phase 15 part 1,
             # the straight run, summed over its ranks)
             "mc_launches": mc["conv"].get(route, 0),
+            # ... and over phase 16's multi-rank runs of the entry points
+            # (training, summed over their ranks)
+            "multicard_launches": multicard["conv"].get(route, 0),
             "max_abs_err": conv_errs[key],
             **mean,
             "bound_by": per_k[0]["bound_by"],

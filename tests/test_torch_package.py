@@ -171,7 +171,8 @@ COMPLETE = ["backend.metrics", "backend.plda", "backend.plda_device",
             "extract.extractor", "io.datadir", "io.shorten", "io.wav",
             "models.heads", "ops.augment", "ops.features",
             "parallel.launch", "parallel.mc_harness", "parallel.mesh",
-            "parallel.seqshard", "train.checkpoints", "train.combine",
+            "parallel.seqshard", "presets", "runtime.native",
+            "train.checkpoints", "train.combine",
             "train.preemption", "train.schedules", "train.trainer",
             "utils.export", "utils.kaldi_conf", "utils.scores"]
 
@@ -187,6 +188,7 @@ def test_module_has_every_name_of_its_jax_counterpart(module):
     want = {n for n, f in vars(jm).items()
             if (inspect.isfunction(f) or inspect.isclass(f))
             and f.__module__ == jm.__name__}
+    want |= set(getattr(jm, "__all__", ()))   # presets: data names only
     assert want, module
     assert not want - set(vars(pm)), sorted(want - set(vars(pm)))
     assert set(getattr(jm, "__all__", ())) <= set(getattr(pm, "__all__",

@@ -6,13 +6,21 @@ tcp:// address> <inputs.pkl> <out dir>``: the rank joins a gloo group
 through the file store or the address (on ``inputs["device"]``, the CPU
 by default: the card's groups put every rank on ``cuda:0``), computes the cases of ``<group>`` on the inputs
 the test pickled (or makes from a seed), and pickles its results as
-``<out dir>/<group>_<rank>.pkl``.  Imports the port, never JAX.
+``<out dir>/<group>_<rank>.pkl``.  Group ``cli`` joins nothing itself: it
+runs an entry point's ``main`` as one rank under the launch contract
+(``XVEC_*`` variables, gloo; ``tests/test_torch_entry_multirank.py``).
+Imports the port, never JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import importlib
+import io
 import os
 import pickle
+import signal
 import sys
 from dataclasses import replace
 
@@ -350,28 +358,91 @@ def group_tcp(rank, world, inputs):
     return {"sum": float(t), "world": torch.distributed.get_world_size()}
 
 
-GROUPS = {"heads": group_heads, "coord": group_coord, "tcp": group_tcp, "data": group_data,
+def group_pad3(rank, world, inputs):
+    """world = 3: one SGD iteration on 8-row minibatches, which the data
+    axis does not divide (``launch.local_rows`` pads them to 9 with a
+    weight-0 row); then ``launch.Rank0Stage`` handing rank 0's result to
+    every rank, and rank 0's failure inside a stage to every rank."""
+    mesh = meshlib.make_mesh(data=world, model=1, device="cpu")
+    tr = _trainer(inputs, "pad3", mesh, optimizer="sgd", momentum=0.5)
+    batches = scaling_batches(n=2, mb=8)
+    st = tr.train_one_iteration(0, launch.local_rows(iter(batches), mesh),
+                                lr=1e-3, dropout=0.0, shrink=1.0)
+    out = {"sgd": (st["loss"], np_tree(tr.params), np_tree(tr.state)),
+           "rows": [item[0].shape[0] for item in
+                    launch.local_rows(iter(batches), mesh)]}
+    with launch.Rank0Stage(mesh, inputs["work"], "stage") as stage:
+        if stage.runs_here:
+            stage.result = {"from": rank}
+    out["stage"] = stage.result
+    try:
+        with launch.Rank0Stage(mesh, inputs["work"], "failing") as stage:
+            if stage.runs_here:
+                raise ValueError("rank 0's stage failed")
+        out["failing"] = None
+    except (ValueError, RuntimeError) as e:
+        out["failing"] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def cli_rank(rank, world, init, inputs):
+    """One rank of an entry point (``inputs["module"]``'s ``main`` on
+    ``inputs["argv"]``) under the launch contract, over gloo.  Optional:
+    ``sgd`` (the CLI's ``TrainConfig`` made SGD with momentum 0.5, for
+    strict parity), ``sigterm`` ({rank: k}: that rank sends itself SIGTERM
+    as the trainer takes its k-th minibatch, counted from 0 over the
+    run)."""
+    os.environ.update(XVEC_COORDINATOR=init, XVEC_NUM_PROCESSES=str(world),
+                      XVEC_PROCESS_ID=str(rank), XVEC_BACKEND="gloo")
+    module = importlib.import_module(inputs["module"])
+    if inputs.get("sgd"):
+        module.TrainConfig = functools.partial(module.TrainConfig,
+                                               optimizer="sgd", momentum=0.5)
+    kill_at = inputs.get("sigterm", {}).get(rank)
+    if kill_at is not None:
+        rows, count = launch.local_rows, [0]
+
+        def counted(batches, mesh):
+            for item in rows(batches, mesh):
+                if count[0] == kill_at:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                count[0] += 1
+                yield item
+
+        launch.local_rows = counted
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = module.main(inputs["argv"])
+    return {"stdout": buf.getvalue(), "result": result,
+            "imported": sorted(m for m in ("jax", "xvector_tpu")
+                               if m in sys.modules)}
+
+
+GROUPS = {"pad3": group_pad3, "heads": group_heads, "coord": group_coord,
+          "tcp": group_tcp, "data": group_data,
           "steps": group_steps, "two": group_two,
           "cuda_step": group_cuda_step, "cuda_sharded": group_cuda_sharded}
 
 
-def run(group, world, inputs, tmp, timeout=100, init=None):
+def run(group, world, inputs, tmp, timeout=100, init=None, tag=""):
     """Spawn ``group``'s ranks on ``inputs`` (pickled into ``tmp``) and
     return their results, rank by rank; a hung group is killed at
     ``timeout`` seconds.  The ranks meet through a store file in ``tmp``,
-    or at ``init`` (a ``tcp://`` address) where it is given."""
+    or at ``init`` (a ``tcp://`` address) where it is given; ``tag`` names
+    one of several runs of a group in ``tmp``."""
     from xvector_tpu_torch.parallel import mc_harness
     tmp = str(tmp)
-    inputs_path = os.path.join(tmp, f"inputs_{group}.pkl")
+    group_dir = os.path.join(tmp, group + tag)
+    os.makedirs(group_dir, exist_ok=True)
+    inputs_path = os.path.join(group_dir, "inputs.pkl")
     with open(inputs_path, "wb") as f:
         pickle.dump(inputs, f)
     mc_harness.spawn(os.path.abspath(__file__), [
-        [group, r, world, init or os.path.join(tmp, f"rdv_{group}"),
-         inputs_path,
-         tmp] for r in range(world)], timeout=timeout)
+        [group, r, world, init or os.path.join(group_dir, "rdv"),
+         inputs_path, group_dir] for r in range(world)], timeout=timeout)
     out = []
     for r in range(world):
-        with open(os.path.join(tmp, f"{group}_{r}.pkl"), "rb") as f:
+        with open(os.path.join(group_dir, f"{group}_{r}.pkl"), "rb") as f:
             out.append(pickle.load(f))
     return out
 
@@ -383,7 +454,9 @@ def main(argv):
         init = f"file://{init}"
     with open(inputs_path, "rb") as f:
         inputs = pickle.load(f)
-    if group == "nccl":      # never joins: NCCL on one device must raise
+    if group == "cli":
+        result = cli_rank(rank, world, init, inputs)
+    elif group == "nccl":    # never joins: NCCL on one device must raise
         try:
             meshlib.init_distributed("nccl", init, world, rank,
                                      "cuda:0")

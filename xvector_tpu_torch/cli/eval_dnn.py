@@ -4,7 +4,11 @@ diagnostic archive.
 Counterpart of ``xvector_tpu/cli/eval_dnn.py`` (the reference's
 ``eval_dnn.py:89-101``): probes a saved checkpoint after the fact and
 prints one JSON line ``{"egs": ..., "loss": ..., "accuracy": ...}``.
-``--device`` (default ``cuda``) picks the device.
+``--device`` (default ``cuda``) picks the device.  On a host with several
+visible cards it evaluates data-parallel on all of them, as the JAX
+package does on every local chip (``parallel/launch.run``): each rank
+feeds its rows of each minibatch, the eval step sums loss and accuracy
+over the ranks, and rank 0 alone prints.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import sys
 
 from ..data import archives as archlib
 from ..models.tdnn import MODEL_ZOO, REFERENCE_CLASS_TO_PRESET
+from ..parallel import launch
 from ..train import checkpoints
 from ..train.trainer import TrainConfig, Trainer
 
@@ -47,28 +52,35 @@ def main(argv=None):
         sys.exit(f"no checkpoint under {target}")
     cfg = TrainConfig(model=preset, num_targets=args.num_targets,
                       compute_dtype=args.compute_dtype)
-    trainer = Trainer(cfg, work_dir, feat_dim=args.feat_dim,
-                      device=args.device)
-    if is_iter_dir:
-        checkpoints.restore_into(trainer, target)
-    else:
-        final = os.path.join(target, "model_final")
-        if os.path.exists(final):
-            checkpoints.restore_into(trainer, os.path.realpath(final))
-        else:
-            # model_0 (the initial-parameters save) counts: a run that
-            # crashed in iteration 0 is still evaluable
-            checkpoints.restore_latest(trainer)
 
-    if args.egs.endswith(".tar"):
-        from ..data.reference_tar import read_reference_tar
-        # streamed: evaluate() reads it once
-        loader = ((mat, lab, int(mat.shape[1]))
-                  for mat, lab in read_reference_tar(args.egs))
-    else:
-        loader = archlib.PrefetchLoader(archlib.ArchiveReader(args.egs))
-    stats = trainer.evaluate(loader)
-    print(json.dumps({"egs": args.egs, **stats}))
+    def evaluate(device, mesh):
+        trainer = Trainer(cfg, work_dir, feat_dim=args.feat_dim,
+                          device=device, mesh=mesh)
+        if is_iter_dir:
+            checkpoints.restore_into(trainer, target)
+        else:
+            final = os.path.join(target, "model_final")
+            if os.path.exists(final):
+                checkpoints.restore_into(trainer, os.path.realpath(final))
+            else:
+                # model_0 (the initial-parameters save) counts: a run that
+                # crashed in iteration 0 is still evaluable
+                checkpoints.restore_latest(trainer)
+
+        if args.egs.endswith(".tar"):
+            from ..data.reference_tar import read_reference_tar
+            # streamed: evaluate() reads it once
+            loader = ((mat, lab, int(mat.shape[1]))
+                      for mat, lab in read_reference_tar(args.egs))
+        else:
+            loader = archlib.PrefetchLoader(archlib.ArchiveReader(args.egs))
+        stats = trainer.evaluate(launch.local_rows(loader, mesh))
+        if mesh is None or mesh.rank == 0:
+            print(json.dumps({"egs": args.egs, **stats}))
+        return stats
+
+    return launch.run("xvector_tpu_torch.cli.eval_dnn", argv, args.device,
+                      work_dir, evaluate)
 
 
 if __name__ == "__main__":

@@ -468,7 +468,8 @@ class Recipe:
         minibatches assembled from the egs feature ark at train time in
         the same order.  ``mesh`` (``parallel/mesh.py``) makes this process
         one rank of a multi-GPU run (``Trainer``'s launch contract: each
-        rank feeds its rows of every minibatch)."""
+        rank reads whole archives and feeds its rows of every minibatch,
+        ``parallel/launch.local_rows``)."""
         tcfg = replace(self.cfg.train, num_targets=num_targets)
         trainer = Trainer(tcfg, self._p("exp"),
                           feat_dim=self.cfg.mfcc.num_ceps,
@@ -479,15 +480,8 @@ class Recipe:
         stream_cache: Dict[int, alloclib.ArchivePlan] = {}
         stream_src: Dict[str, Tuple[str, int]] = {}
 
-        def local_rows(batches):
-            """This rank's rows of each minibatch (the launch contract)."""
-            for x, y, t in batches:
-                lo, hi = launch.host_local_batch_slice(x.shape[0],
-                                                       trainer.mesh)
-                yield x[lo:hi], y[lo:hi], t
-
         def loader(batches):
-            return local_rows(batches) if trainer.mesh.size > 1 else batches
+            return launch.local_rows(batches, trainer.mesh)
 
         def archive_batches(i):
             if self.cfg.stream_egs:
@@ -783,10 +777,11 @@ def main(argv=None):
     or --synthetic-speakers for a self-contained demo corpus.
     Augmentation (run.sh:113-171) activates when --musan-dir and/or
     --rirs-dir point at the MUSAN / RIRS_NOISES corpora.  Every stage runs
-    on --device (default cuda).
+    on --device (default cuda).  On a host with several visible cards,
+    stage 3 trains on all of them, one rank per card
+    (``parallel/launch.run``): rank 0 alone runs stages 0-2 while the
+    others wait, and stages 4-5 after training.
     """
-    from ..io.wav import load_wave
-
     ap = argparse.ArgumentParser(description=main.__doc__)
     ap.add_argument("--work-dir", required=True)
     ap.add_argument("--musan-dir", default="",
@@ -821,13 +816,24 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="where every stage runs (cuda, or cpu)")
     args = ap.parse_args(argv)
+    if not (args.synthetic_speakers or args.data_dir):
+        ap.error("need --data-dir or --synthetic-speakers")
+    return launch.run("xvector_tpu_torch.cli.run", argv, args.device,
+                      args.work_dir,
+                      lambda device, mesh: _run(args, device, mesh))
+
+
+def _run(args, device, mesh):
+    """``main``'s stages on ``device``, as one rank of ``mesh`` (or alone
+    without one)."""
+    from ..io.wav import load_wave
 
     if args.synthetic_speakers:
         waves, utt2spk = _synthetic_corpus(args.synthetic_speakers,
                                            args.synthetic_utts)
         data = DataDir(utt2spk=utt2spk)
         provider = lambda u: waves[u]
-    elif args.data_dir:
+    else:
         from ..io.datadir import load_data_dir
         from ..io.wav import resample
         data = load_data_dir(args.data_dir)
@@ -838,8 +844,6 @@ def main(argv=None):
             if rate and rate != target_sr:
                 samples = resample(samples, rate, target_sr)
             return samples
-    else:
-        ap.error("need --data-dir or --synthetic-speakers")
 
     preset = tdnn.REFERENCE_CLASS_TO_PRESET.get(args.model, args.model)
     cfg = RecipeConfig(
@@ -859,47 +863,31 @@ def main(argv=None):
             batch_size=8, compute_dtype=args.compute_dtype),
         lda_dim=args.lda_dim,
         stream_egs=args.stream_egs,
-        device=args.device)
+        device=str(device))
     recipe = Recipe(cfg)
 
-    if args.musan_dir or args.rirs_dir:
-        from ..data import corpora
-        sr = cfg.mfcc.sample_rate
-        rirs = noises = musics = speeches = None
-        if args.rirs_dir:
-            rooms = corpora.make_rirs(args.rirs_dir)
-            rirs = {room: _LazyWaves(paths, target_sr=sr)
-                    for room, paths in rooms.items() if paths} or None
-        if args.musan_dir:
-            musan = corpora.make_musan(args.musan_dir)
-
-            def lazy(cat):
-                if cat not in musan:
-                    return None
-                dd = musan[cat]
-                return _LazyWaves([dd.wav[u] for u in dd.utts],
-                                  target_sr=sr) or None
-
-            noises, musics, speeches = lazy("noise"), lazy("music"), \
-                lazy("speech")
-        print("== stage 0: augmentation "
-              f"(rirs={bool(rirs)} noise={bool(noises)} "
-              f"music={bool(musics)} babble={bool(speeches)})")
-        data, provider = recipe.augment(data, provider, rirs=rirs,
-                                        noises=noises, musics=musics,
-                                        speeches=speeches)
-
-    if args.stage >= 0:
-        print(f"== forcing re-run from stage {args.stage}")
-        recipe.force_from_stage(args.stage)
-
-    print(f"== stage 1: features ({len(data)} utts)")
-    feat_dir = recipe.make_features(data, provider, split="all")
-    print("== stage 2: egs")
-    train_dir, valid_dir, num_targets = recipe.make_egs(feat_dir)
-    print(f"   {num_targets} speakers, {recipe.num_archives} archives")
-    print("== stage 3: train")
-    trainer = recipe.train(num_targets)
+    # the host stages: rank 0 alone, the other ranks wait outside any
+    # collective
+    with launch.Rank0Stage(mesh, args.work_dir, "egs") as stage:
+        if stage.runs_here:
+            data, provider = _augment(args, recipe, data, provider)
+            if args.stage >= 0:
+                print(f"== forcing re-run from stage {args.stage}")
+                recipe.force_from_stage(args.stage)
+            print(f"== stage 1: features ({len(data)} utts)")
+            feat_dir = recipe.make_features(data, provider, split="all")
+            print("== stage 2: egs")
+            train_dir, valid_dir, num_targets = recipe.make_egs(feat_dir)
+            print(f"   {num_targets} speakers, {recipe.num_archives} "
+                  "archives")
+            stage.result = {"num_targets": num_targets,
+                            "num_archives": recipe.num_archives}
+    recipe.num_archives = stage.result["num_archives"]
+    if stage.runs_here:
+        print("== stage 3: train")
+    trainer = recipe.train(stage.result["num_targets"], mesh)
+    if not launch.leave_group(mesh):
+        return None
     print("== stage 4: extract"
           + (" (from wav)" if args.extract_from_wav else ""))
     if args.extract_from_wav:
@@ -921,6 +909,37 @@ def main(argv=None):
     print(f"   EER {res['eer']*100:.2f}%  minDCF {res['min_dcf']:.3f}  "
           f"({res['num_trials']} trials)")
     return res
+
+
+def _augment(args, recipe, data, provider):
+    """Stage 0 (run.sh:113-171): reverb, noise, music and babble copies
+    where --rirs-dir or --musan-dir is given; else ``data`` as it is."""
+    if not (args.musan_dir or args.rirs_dir):
+        return data, provider
+    from ..data import corpora
+    sr = recipe.cfg.mfcc.sample_rate
+    rirs = noises = musics = speeches = None
+    if args.rirs_dir:
+        rooms = corpora.make_rirs(args.rirs_dir)
+        rirs = {room: _LazyWaves(paths, target_sr=sr)
+                for room, paths in rooms.items() if paths} or None
+    if args.musan_dir:
+        musan = corpora.make_musan(args.musan_dir)
+
+        def lazy(cat):
+            if cat not in musan:
+                return None
+            dd = musan[cat]
+            return _LazyWaves([dd.wav[u] for u in dd.utts],
+                              target_sr=sr) or None
+
+        noises, musics, speeches = lazy("noise"), lazy("music"), \
+            lazy("speech")
+    print("== stage 0: augmentation "
+          f"(rirs={bool(rirs)} noise={bool(noises)} "
+          f"music={bool(musics)} babble={bool(speeches)})")
+    return recipe.augment(data, provider, rirs=rirs, noises=noises,
+                          musics=musics, speeches=speeches)
 
 
 if __name__ == "__main__":

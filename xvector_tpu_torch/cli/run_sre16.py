@@ -23,8 +23,15 @@ outputs under the same names (``stage_walls.json``, ``sre16_results.json``,
 ``scores_<variant>.txt``/``.tsv``, the ``xvector_<split>.scp`` files) and
 the same returned dict.  Every stage runs on ``--device`` (``cuda`` unless
 the caller asks for ``cpu``): training through K2-K4, extraction through
-K1 where the topology and dtype take it.  ``Recipe.train`` takes no mesh:
-the multi-GPU path is not ported.
+K1 where the topology and dtype take it.  On a host with several visible
+cards the training stage runs on all of them, one rank per card, as the
+JAX package's trains on every local chip (``parallel/launch.run``;
+``CUDA_VISIBLE_DEVICES`` picks the cards): rank 0 alone runs the corpus
+prep, features and egs while the other ranks wait, then every rank trains
+(``Recipe.train(num_targets, mesh)``), and rank 0 alone extracts, scores
+and writes every output.  The process that started the ranks returns what
+rank 0 wrote to ``sre16_results.json`` (each variant's EER, minDCF and
+trial count, without the per-trial scores).
 """
 
 from __future__ import annotations
@@ -38,9 +45,13 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from .. import resolve_device
+from ..data import allocator as alloclib
 from ..data import corpora
+from ..extract.extractor import ExtractorConfig, speaker_means
 from ..io.datadir import DataDir
 from ..io.wav import load_wave
+from ..parallel import launch
+from ..train.trainer import TrainConfig
 from .run import Recipe, RecipeConfig, _LazyWaves
 
 
@@ -199,11 +210,47 @@ def main(argv=None):
                     help="where every stage runs (cuda, or cpu)")
     args = ap.parse_args(argv)
     resolve_device(args.device)      # no card: raise before any work
+    return launch.run("xvector_tpu_torch.cli.run_sre16", argv, args.device,
+                      args.work_dir,
+                      lambda device, mesh: _run(args, device, mesh),
+                      read_result=lambda: _read_results(args.work_dir))
 
-    from ..data import allocator as alloclib
-    from ..train.trainer import TrainConfig
-    from ..extract.extractor import ExtractorConfig, speaker_means
 
+def _read_results(work_dir: str) -> dict:
+    with open(os.path.join(work_dir, "sre16_results.json")) as f:
+        return json.load(f)
+
+
+def _config(args, num_valid_utts: int, device) -> RecipeConfig:
+    return RecipeConfig(
+        work_dir=args.work_dir,
+        min_utt_frames=args.min_utt_frames,
+        min_spk_utts=args.min_spk_utts,
+        num_valid_utts=num_valid_utts,
+        num_archives=args.num_archives,
+        allocator=alloclib.AllocatorConfig(
+            min_frames=args.min_chunk, max_frames=args.max_chunk,
+            minibatch_size=args.minibatch_size,
+            num_repeats=args.num_repeats,
+            frames_per_iter=int(args.frames_per_iter)),
+        train=TrainConfig(model=args.model, num_targets=1,
+                          num_epochs=args.num_epochs,
+                          compute_dtype=args.compute_dtype,
+                          final_combine=args.do_final_combination,
+                          max_models_combine=args.max_models_combine,
+                          preserve_model_interval=
+                          args.preserve_model_interval),
+        extractor=ExtractorConfig(min_chunk=25, max_chunk=10000,
+                                  compute_dtype=args.compute_dtype),
+        lda_dim=args.lda_dim,
+        stream_egs=args.stream_egs,
+        device=str(device))
+
+
+def _run(args, device, mesh):
+    """``main``'s stages on ``device``, as one rank of ``mesh`` (or alone
+    without one): stages 0-6 before training on rank 0 alone, training on
+    every rank, the rest on rank 0."""
     # per-stage wall clocks → <work_dir>/stage_walls.json, so a run's
     # end-to-end wall can be attributed to a stage
     stage_walls: Dict[str, float] = {}
@@ -223,87 +270,83 @@ def main(argv=None):
                   "w") as f:
             json.dump(stage_walls, f, indent=1)
 
-    print("== stage 0: corpus prep")
-    train_data, sre_speakers = build_train_corpus(args)
-    eval_full = corpora.make_sre16_eval_full(
-        args.sre16_eval_root, key_root=args.sre16_key_root or None)
-    enroll_data: DataDir = eval_full["enroll"]
-    test_data: DataDir = eval_full["test"]
-    trials = eval_full["trials"]
-    utt2lang: Dict[str, str] = eval_full["utt2lang"]
-    major_data: Optional[DataDir] = (
-        corpora.make_sre16_unlabeled(args.sre16_major_root)
-        if args.sre16_major_root else None)
-    print(f"   train {len(train_data)} utts / "
-          f"{len(train_data.speakers)} spk; enroll {len(enroll_data)}; "
-          f"test {len(test_data)}; trials {len(trials)}; "
-          f"major {len(major_data) if major_data else 0}")
+    # the host stages: rank 0 alone, the other ranks wait outside any
+    # collective
+    with launch.Rank0Stage(mesh, args.work_dir, "egs") as stage:
+        if stage.runs_here:
+            print("== stage 0: corpus prep")
+            train_data, sre_speakers = build_train_corpus(args)
+            eval_full = corpora.make_sre16_eval_full(
+                args.sre16_eval_root, key_root=args.sre16_key_root or None)
+            enroll_data: DataDir = eval_full["enroll"]
+            test_data: DataDir = eval_full["test"]
+            trials = eval_full["trials"]
+            utt2lang: Dict[str, str] = eval_full["utt2lang"]
+            major_data: Optional[DataDir] = (
+                corpora.make_sre16_unlabeled(args.sre16_major_root)
+                if args.sre16_major_root else None)
+            print(f"   train {len(train_data)} utts / "
+                  f"{len(train_data.speakers)} spk; "
+                  f"enroll {len(enroll_data)}; test {len(test_data)}; "
+                  f"trials {len(trials)}; "
+                  f"major {len(major_data) if major_data else 0}")
 
-    cfg = RecipeConfig(
-        work_dir=args.work_dir,
-        min_utt_frames=args.min_utt_frames,
-        min_spk_utts=args.min_spk_utts,
-        num_valid_utts=max(2, min(args.num_valid_utts,
-                                  len(train_data) // 10)),
-        num_archives=args.num_archives,
-        allocator=alloclib.AllocatorConfig(
-            min_frames=args.min_chunk, max_frames=args.max_chunk,
-            minibatch_size=args.minibatch_size,
-            num_repeats=args.num_repeats,
-            frames_per_iter=int(args.frames_per_iter)),
-        train=TrainConfig(model=args.model, num_targets=1,
-                          num_epochs=args.num_epochs,
-                          compute_dtype=args.compute_dtype,
-                          final_combine=args.do_final_combination,
-                          max_models_combine=args.max_models_combine,
-                          preserve_model_interval=
-                          args.preserve_model_interval),
-        extractor=ExtractorConfig(min_chunk=25, max_chunk=10000,
-                                  compute_dtype=args.compute_dtype),
-        lda_dim=args.lda_dim,
-        stream_egs=args.stream_egs,
-        device=args.device)
-    recipe = Recipe(cfg)
-    if args.stage >= 0:
-        recipe_stage = _STAGE_TO_RECIPE.get(args.stage, 99)
-        print(f"== forcing re-run from stage {args.stage} "
-              f"(recipe artifact stage {recipe_stage})")
-        recipe.force_from_stage(recipe_stage)
+            cfg = _config(args, max(2, min(args.num_valid_utts,
+                                           len(train_data) // 10)), device)
+            recipe = Recipe(cfg)
+            if args.stage >= 0:
+                recipe_stage = _STAGE_TO_RECIPE.get(args.stage, 99)
+                print(f"== forcing re-run from stage {args.stage} "
+                      f"(recipe artifact stage {recipe_stage})")
+                recipe.force_from_stage(recipe_stage)
 
-    sr = cfg.mfcc.sample_rate
-    provider = wav_provider_for(train_data, target_sr=sr)
-    if args.musan_dir or args.rirs_dir:
-        print("== stage 2: augmentation")
-        sr = cfg.mfcc.sample_rate
-        rirs = noises = musics = speeches = None
-        if args.rirs_dir:
-            rooms = corpora.make_rirs(args.rirs_dir)
-            rirs = {room: _LazyWaves(paths, target_sr=sr)
-                    for room, paths in rooms.items() if paths} or None
-        if args.musan_dir:
-            musan = corpora.make_musan(args.musan_dir)
+            sr = cfg.mfcc.sample_rate
+            provider = wav_provider_for(train_data, target_sr=sr)
+            if args.musan_dir or args.rirs_dir:
+                print("== stage 2: augmentation")
+                sr = cfg.mfcc.sample_rate
+                rirs = noises = musics = speeches = None
+                if args.rirs_dir:
+                    rooms = corpora.make_rirs(args.rirs_dir)
+                    rirs = {room: _LazyWaves(paths, target_sr=sr)
+                            for room, paths in rooms.items()
+                            if paths} or None
+                if args.musan_dir:
+                    musan = corpora.make_musan(args.musan_dir)
 
-            def lazy(cat):
-                dd = musan.get(cat)
-                return (_LazyWaves([dd.wav[u] for u in dd.utts],
-                                   target_sr=sr) if dd else None)
+                    def lazy(cat):
+                        dd = musan.get(cat)
+                        return (_LazyWaves([dd.wav[u] for u in dd.utts],
+                                           target_sr=sr) if dd else None)
 
-            noises, musics, speeches = (lazy("noise"), lazy("music"),
-                                        lazy("speech"))
-        train_data, provider = recipe.augment(
-            train_data, provider, rirs=rirs, noises=noises, musics=musics,
-            speeches=speeches)
-    lap("prep_augment")
+                    noises, musics, speeches = (
+                        lazy("noise"), lazy("music"), lazy("speech"))
+                train_data, provider = recipe.augment(
+                    train_data, provider, rirs=rirs, noises=noises,
+                    musics=musics, speeches=speeches)
+            lap("prep_augment")
 
-    print(f"== stage 1: features (train: {len(train_data)} utts)")
-    train_feats = recipe.make_features(train_data, provider, split="train")
-    lap("features")
-    print("== stage 4-6: egs + train")
-    train_dir, _valid_dir, num_targets = recipe.make_egs(train_feats)
-    print(f"   {num_targets} speakers, {recipe.num_archives} archives")
-    lap("egs")
-    trainer = recipe.train(num_targets)
+            print(f"== stage 1: features (train: {len(train_data)} utts)")
+            train_feats = recipe.make_features(train_data, provider,
+                                               split="train")
+            lap("features")
+            print("== stage 4-6: egs + train")
+            train_dir, _valid_dir, num_targets = recipe.make_egs(
+                train_feats)
+            print(f"   {num_targets} speakers, {recipe.num_archives} "
+                  "archives")
+            lap("egs")
+            stage.result = {"num_targets": num_targets,
+                            "num_archives": recipe.num_archives,
+                            "num_valid_utts": cfg.num_valid_utts}
+    if not stage.runs_here:
+        recipe = Recipe(_config(args, stage.result["num_valid_utts"],
+                                device))
+        recipe.num_archives = stage.result["num_archives"]
+    trainer = recipe.train(stage.result["num_targets"], mesh)
     lap("train")
+    if not launch.leave_group(mesh):
+        return None
 
     print("== stage 7: extraction")
 

@@ -11,6 +11,13 @@ keep their Kaldi spellings (``--tf-model-class``,
 ``accuracy.report`` from ``metrics.jsonl``.  ``--device`` (default
 ``cuda``) picks the device; without a card a ``cuda`` run raises.
 
+Like the JAX package's, which trains on every local chip, it trains
+data-parallel on every visible card, one rank per card under NCCL
+(``parallel/launch.run``; ``CUDA_VISIBLE_DEVICES`` picks the cards): each
+rank reads whole archives and feeds its rows of each minibatch, and rank 0
+alone writes the report and prints the summary.  One visible card, or
+``--device=cpu``, is one process.
+
     python -m xvector_tpu_torch.cli.train_dnn --model=no_dropout \\
         --num-targets=7185 --egs-dir=EGS --dir=EXP --device=cuda
 """
@@ -24,6 +31,7 @@ import sys
 
 from ..data import archives as archlib
 from ..models.tdnn import MODEL_ZOO, REFERENCE_CLASS_TO_PRESET
+from ..parallel import launch
 from ..train.preemption import GracefulPreemption
 from ..train.trainer import TrainConfig, Trainer
 from ..utils.scores import generate_report
@@ -105,33 +113,44 @@ def main(argv=None):
         with archlib.ArchiveReader(paths[0]) as r:
             feat_dim = int(r.index[0]["shape"][2])
 
-    def archive_batches(i):
-        return archlib.PrefetchLoader(archlib.ArchiveReader(paths[i]))
+    def train(device, mesh):
+        def archive_batches(i):
+            return launch.local_rows(
+                archlib.PrefetchLoader(archlib.ArchiveReader(paths[i])),
+                mesh)
 
-    def diag(name):
-        p = os.path.join(args.egs_dir, name)
-        if not os.path.exists(p):
-            return None
-        return lambda: archlib.PrefetchLoader(archlib.ArchiveReader(p))
+        def diag(name):
+            p = os.path.join(args.egs_dir, name)
+            if not os.path.exists(p):
+                return None
+            return lambda: launch.local_rows(
+                archlib.PrefetchLoader(archlib.ArchiveReader(p)), mesh)
 
-    trainer = Trainer(cfg, args.work_dir, feat_dim=feat_dim,
-                      device=args.device)
-    # SIGTERM stops at the next safe point; the per-iteration checkpoint
-    # makes a rerun resume exactly
-    with GracefulPreemption() as pre:
-        final = trainer.train(
-            archive_batches, len(paths),
-            valid_batches=diag("valid_egs.xta"),
-            train_subset_batches=diag("train_subset_egs.xta"),
-            start_iter=args.stage, preemption=pre)
-    report = generate_report(os.path.join(args.work_dir, "metrics.jsonl"))
-    with open(os.path.join(args.work_dir, "accuracy.report"), "w") as f:
-        f.write(report)
-    if pre.requested:
-        print(f"preempted after {final} complete iterations -> "
-              f"{args.work_dir} (rerun to resume)")
-    else:
-        print(f"trained {final} iterations -> {args.work_dir}/model_final")
+        trainer = Trainer(cfg, args.work_dir, feat_dim=feat_dim,
+                          device=device, mesh=mesh)
+        # SIGTERM stops at the next safe point (every rank at the same
+        # one); the per-iteration checkpoint makes a rerun resume exactly
+        with GracefulPreemption() as pre:
+            final = trainer.train(
+                archive_batches, len(paths),
+                valid_batches=diag("valid_egs.xta"),
+                train_subset_batches=diag("train_subset_egs.xta"),
+                start_iter=args.stage, preemption=pre)
+        if mesh is not None and mesh.rank:
+            return
+        report = generate_report(os.path.join(args.work_dir,
+                                              "metrics.jsonl"))
+        with open(os.path.join(args.work_dir, "accuracy.report"), "w") as f:
+            f.write(report)
+        if final < cfg.num_epochs * len(paths):
+            print(f"preempted after {final} complete iterations -> "
+                  f"{args.work_dir} (rerun to resume)")
+        else:
+            print(f"trained {final} iterations -> "
+                  f"{args.work_dir}/model_final")
+
+    launch.run("xvector_tpu_torch.cli.train_dnn", argv, args.device,
+               args.work_dir, train)
 
 
 if __name__ == "__main__":

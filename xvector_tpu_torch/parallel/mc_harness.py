@@ -330,6 +330,35 @@ mc_harness.worker_main(sys.argv[1:])
 """
 
 
+def watch(procs: Sequence[subprocess.Popen],
+          timeout: Optional[float] = None) -> Tuple[Optional[int], bool]:
+    """Wait for every process.  At the first one that exits with a
+    non-zero code, or once ``timeout`` seconds have passed (``None``: no
+    limit), every process still running is killed.  Returns (the index of
+    that first failed process or None, whether the timeout struck)."""
+    deadline = None if timeout is None else time.monotonic() + timeout
+    failed, timed_out = None, False
+    try:
+        pending = list(range(len(procs)))
+        while pending and failed is None:
+            for i in list(pending):
+                if procs[i].poll() is not None:
+                    pending.remove(i)
+                    if procs[i].returncode != 0:
+                        failed = i
+                        break
+            if deadline is not None and time.monotonic() > deadline:
+                timed_out = True
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return failed, timed_out
+
+
 def spawn(script: str, argvs: Sequence[Sequence[str]],
           timeout: float = TIMEOUT_S, env: Optional[dict] = None
           ) -> List[str]:
@@ -348,32 +377,15 @@ def spawn(script: str, argvs: Sequence[Sequence[str]],
     procs = [subprocess.Popen([sys.executable, script, *map(str, argv)],
                               env=full, stdout=log, stderr=subprocess.STDOUT)
              for argv, log in zip(argvs, logs)]
-    deadline = time.monotonic() + timeout
-    failed = timed_out = False
-    try:
-        pending = list(procs)
-        while pending and not failed:
-            for p in list(pending):
-                if p.poll() is not None:
-                    pending.remove(p)
-                    failed |= p.returncode != 0
-            if time.monotonic() > deadline:
-                timed_out = True
-                break
-            time.sleep(0.05)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
+    failed, timed_out = watch(procs, timeout)
     outs = []
     for log in logs:
         log.seek(0)
         outs.append(log.read().decode(errors="replace"))
         log.close()
-    if timed_out or failed:
+    if timed_out or failed is not None:
         why = (f"timed out after {timeout}s" if timed_out
-               else "a worker failed")
+               else f"worker {failed} failed")
         raise RuntimeError(
             f"{os.path.basename(script)}: {why}; worker outputs:\n"
             + "\n--- next worker ---\n".join(

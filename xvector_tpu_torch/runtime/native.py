@@ -30,9 +30,9 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["get_lib", "available", "threads", "lib_path", "mat_shape",
-           "read_mat", "shorten_decode", "ArkStream", "read_vec_matrix",
-           "materialize_chunks"]
+__all__ = ["get_lib", "available", "stream_supported", "shorten_supported",
+           "threads", "lib_path", "mat_shape", "read_mat", "shorten_decode",
+           "ArkStream", "read_vec_matrix", "materialize_chunks"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "xta_io.cc"
@@ -164,6 +164,18 @@ def get_lib() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return get_lib() is not None
+
+
+def stream_supported() -> bool:
+    """Whether the streaming ark reader (``ArkStream``) is there: the port
+    builds libxta from its own source, so whenever libxta is."""
+    return available()
+
+
+def shorten_supported() -> bool:
+    """Whether the native shorten decoder is there (as
+    :func:`stream_supported`)."""
+    return available()
 
 
 def threads() -> int:

@@ -31,10 +31,14 @@ defaults to True: the wide conv layers run the hand-written kernels of
 JAX package left its Pallas kernels opt-in).
 
 On a mesh of several ranks (``Trainer(..., mesh=...)``) every rank feeds
-its own rows of each global minibatch; the batch-norm moments and the
-loss's mean are global (all-reduced over the data group), and after each
-backward the gradients are summed over the data group in one flat
-all-reduce, so every rank applies the same update to the same bits.
+its own rows of each global minibatch (``parallel/launch.local_rows``,
+which pads a minibatch the data axis does not divide with weight-0 rows
+and names the true row count); the batch-norm moments and the loss's mean
+are global (all-reduced over the data group), and after each backward the
+gradients are summed over the data group in one flat all-reduce, so every
+rank applies the same update to the same bits.  A stop request is agreed
+over the ranks (the largest flag wins) at each iteration boundary and each
+block boundary, so every rank stops at the same place.
 ``head="sharded_softmax"`` splits the head's columns over the model axis
 (:func:`~..models.heads.local_sharded_softmax_ce`); ``"softmax"`` keeps it
 whole on every rank.  Checkpoints are written by rank 0 in the
@@ -109,13 +113,21 @@ class TrainConfig:
     dense_fastpath: bool = True            # mask-free twin for full blocks
 
 
-def _device_mask(batch_shape, t_len: int, n_rows: int, device):
-    """(B, T) frame mask and (B,) row weight built on the device from two
-    host integers."""
+def _device_mask(batch_shape, t_len: int, n_rows: int, device,
+                 first_row: int = 0):
+    """(B, T) frame mask and (B,) row weight built on the device from host
+    integers: the rows are rows ``first_row``.. of a global batch whose
+    first ``n_rows`` rows are real."""
     b, t = batch_shape[:2]
     mask = (torch.arange(t, device=device) < t_len).to(torch.float32)
-    weight = (torch.arange(b, device=device) < n_rows).to(torch.float32)
+    weight = (torch.arange(first_row, first_row + b, device=device)
+              < n_rows).to(torch.float32)
     return mask.expand(b, t), weight
+
+
+def _first_row(mesh: Optional[meshlib.Mesh], local_rows: int) -> int:
+    """Index in the global batch of this rank's first row."""
+    return 0 if mesh is None else mesh.data_index * local_rows
 
 
 def _compute_dtype(cfg: TrainConfig) -> torch.dtype:
@@ -127,12 +139,14 @@ def _loss_fn(model_cfg: tdnn.TdnnConfig, cfg: TrainConfig, params, state,
              bn_stats_out: bool = False, dense: bool = False,
              mesh: Optional[meshlib.Mesh] = None):
     """Loss of this rank's rows (the global batch's on every rank under a
-    mesh), with (new BN state or batch moments, CE, accuracy)."""
+    mesh), with (new BN state or batch moments, CE, accuracy).
+    ``n_rows`` counts the real rows of the global batch."""
     if dense:
         # the caller certified every row valid and every frame real
         mask, weight = None, None
     else:
-        mask, weight = _device_mask(batch.shape, t_len, n_rows, batch.device)
+        mask, weight = _device_mask(batch.shape, t_len, n_rows, batch.device,
+                                    _first_row(mesh, batch.shape[0]))
     group = None if mesh is None else mesh.data_group
     sharded = cfg.head == "sharded_softmax"
     am = cfg.head == "am_softmax"
@@ -260,7 +274,8 @@ def make_eval_step(model_cfg: tdnn.TdnnConfig, cfg: TrainConfig,
 
     @torch.no_grad()
     def step(params, state, batch, labels, t_len, n_rows):
-        mask, weight = _device_mask(batch.shape, t_len, n_rows, batch.device)
+        mask, weight = _device_mask(batch.shape, t_len, n_rows, batch.device,
+                                    _first_row(mesh, batch.shape[0]))
         out = tdnn.apply(model_cfg, params, state, batch, mask=mask,
                          train=False, compute_dtype=_compute_dtype(cfg),
                          skip_head=sharded)
@@ -346,13 +361,31 @@ class Trainer:
             self.cfg.initial_effective_lrate, momentum=self.cfg.momentum,
             moments_dtype=self.cfg.adam_moments_dtype)
 
-    def _global_rows(self, local_rows: int) -> int:
-        """Valid rows of the GLOBAL minibatch: each rank feeds its own rows
-        of it (the launch contract, ``parallel/launch.
-        host_local_batch_slice``), all valid, and the ranks of one data
-        index the same ones; one rank feeds the whole minibatch.  (The JAX
-        package's ``_pad_rows``: one device per rank needs no padding.)"""
-        return local_rows * self.mesh.data
+    def _global_rows(self, item: Tuple) -> int:
+        """Real rows of the GLOBAL minibatch of which ``item`` (feats,
+        labels, true_len[, global_rows]) holds this rank's rows: the ranks
+        of one data index feed the same rows, and one rank the whole
+        minibatch.  ``global_rows`` comes from a feeder that padded the
+        minibatch to a multiple of the data axis
+        (``parallel/launch.local_rows``, the JAX package's ``_pad_rows``);
+        without it every row of every rank is real."""
+        if len(item) > 3:
+            return int(item[3])
+        return item[0].shape[0] * self.mesh.data
+
+    def _stop_agreed(self, stop_check) -> bool:
+        """``stop_check()`` here, or on any rank of the mesh: the flag is
+        all-reduced (its maximum) over every rank, which must all ask at
+        the same point of the run.  A signal then stops every rank at the
+        same place, and no rank leaves while its peers wait in a
+        collective."""
+        if stop_check is None:
+            return False
+        stop = bool(stop_check())
+        if self.mesh.size == 1:
+            return stop
+        flag = torch.tensor([float(stop)], device=self.device)
+        return bool(meshlib.all_reduce_max(flag, self.mesh.world_group)[0])
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.array(a)).to(self.device)
@@ -380,11 +413,14 @@ class Trainer:
         and, on a mesh of several data ranks, the rank's data index hashed
         in).
         ``stop_check`` (e.g. a :class:`~.preemption.GracefulPreemption`) is
-        polled before each minibatch; when it fires the iteration is
-        abandoned with :class:`~.preemption.PreemptedError` — its partial
-        updates live only in process memory, so a resume replays it from
-        the checkpoint.  Returns mean loss and accuracy, the count of minibatches, of dense
-        and masked blocks and of single steps, and the timer summary."""
+        polled before each minibatch, or on a mesh of several ranks before
+        each block's worth of minibatches (every ``block_size``-th), agreed
+        over the ranks (:meth:`_stop_agreed`); when it fires the iteration
+        is abandoned with :class:`~.preemption.PreemptedError` — its
+        partial updates live only in process memory, so a resume replays
+        it from the checkpoint.  Returns mean loss and accuracy, the count
+        of minibatches, of dense and masked blocks and of single steps, and
+        the timer summary."""
         cfg = self.cfg
         seed = cfg.random_seed + 1000 * it
         if attempt or self.mesh.data > 1:
@@ -427,14 +463,18 @@ class Trainer:
             counts["dense_blocks" if dense else "masked_blocks"] += 1
             pending.append((m, len(tl)))
 
+        # one rank polls at every minibatch; several agree at each block
+        # boundary, so that the poll adds no collective per minibatch
+        several = self.mesh.size > 1
         try:
-            for feats, labels, true_len in batches:
-                if stop_check is not None and stop_check():
+            for i, item in enumerate(batches):
+                if ((not several or (i and i % cfg.block_size == 0))
+                        and self._stop_agreed(stop_check)):
                     raise PreemptedError(f"iteration {it}")
+                feats, labels, true_len = item[:3]
                 key = feats.shape
                 buckets.setdefault(key, []).append(
-                    (feats, labels, true_len,
-                     self._global_rows(feats.shape[0])))
+                    (feats, labels, true_len, self._global_rows(item)))
                 if len(buckets[key]) >= cfg.block_size:
                     inflight.append(uploader.submit(stack, buckets.pop(key)))
                     while len(inflight) > 2:
@@ -487,8 +527,9 @@ class Trainer:
         params = self.params if params is None else params
         state = self.state if state is None else state
         parts = []
-        for feats, labels, true_len in batches:
-            n_rows = self._global_rows(feats.shape[0])
+        for item in batches:
+            feats, labels, true_len = item[:3]
+            n_rows = self._global_rows(item)
             loss, acc = self._eval_fn(
                 params, state, self._upload(feats), self._upload(labels),
                 int(true_len), n_rows)
@@ -535,7 +576,9 @@ class Trainer:
         :class:`~.preemption.GracefulPreemption` or any 0-arg callable)
         makes the run stop cleanly at the next safe point: the last
         complete checkpoint stays durable, no ``model_final`` is marked,
-        and a rerun resumes bit-identically.
+        and a rerun resumes bit-identically.  On a mesh of several ranks
+        every rank passes one (or none), and a request on any rank stops
+        them all at the same place (:meth:`_stop_agreed`).
 
         Held-out diagnostics run off the training path on one worker
         thread (the reference backgrounds them, train_dnn.py:429-460): the
@@ -650,7 +693,7 @@ class Trainer:
         completed iterations (== num_iters unless preempted)."""
         cfg = self.cfg
         for it in range(start_iter, num_iters):
-            if stop_check is not None and stop_check():
+            if self._stop_agreed(stop_check):
                 self._log({"iteration": it, "kind": "preempted",
                            "where": "iteration_boundary"})
                 return it
@@ -744,9 +787,12 @@ class Trainer:
             return skip("no diagnostics batches provided")
         t0 = time.monotonic()
         multi = self.mesh.size > 1
+        # rank 0 holds the first rows of each global minibatch: its real
+        # ones are the first min(rows, global_rows)
         batches = [] if multi and self.mesh.rank else \
             self._uniform_shape_batches(
-                (f, l, t, f.shape[0]) for f, l, t in batches_fn())
+                (b[0], b[1], b[2], min(b[0].shape[0], self._global_rows(b)))
+                for b in batches_fn())
         if not multi and not batches:
             return skip("diagnostics batches yielded no data")
         loaded = [checkpoints.load_pytrees(self, available[it])
