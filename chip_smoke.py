@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's extraction, training, wave, scoring, recipe,
-SRE16 recipe and multi-rank paths on one GPU, and the entry points on
-every GPU of the machine.
+SRE16 recipe and multi-rank paths on one GPU, the entry points on every
+GPU of the machine, and the measurement tooling.
 
 Run from the repository root (one card, no arguments needed):
 
@@ -261,6 +261,29 @@ Phases; any failure raises and the exit code is non-zero:
    time and the gradient all-reduce's share of the step, and process
    start; on one card one line says why it did not run.
 
+17. the measurement tooling (``xvector_tpu_torch/bench/``), short runs:
+   ``headline.run(quick=True)`` (the dense block steps of ``no_dropout``,
+   ``etdnn``, ``l2_lrelu_attention`` and ``no_dropout`` with the
+   AM-softmax head at full width, 64x304, 7,185 classes; the front end
+   over 16 x 8 s; the fused and unfused 32x1024 extraction;
+   ``WaveExtractor`` over 96 x 8 s and its device function alone),
+   ``extract_sweep`` over its 11 shapes, ``dense`` and ``adam_mu``, and
+   ``scale_sre16`` at full ``no_dropout`` width on a cut corpus (16+8+4
+   speakers x 8 utterances, 20 of the tool's 35 repeats, 11 archives)
+   through materialised archives and through ``--stream-egs``.  Checks: each
+   bench's own (finite, falling losses; three K2/K3/K4 calls per wide
+   layer and step, all "sm90": 6, and 9 for ``etdnn``; fused against
+   unfused x-vectors at cosine >= 0.999 at every shape; 96 finite wave
+   x-vectors; both scale runs' GC keep-sets and routes, their
+   ``metrics.jsonl`` records equal as multisets and their EERs equal),
+   K1 and K2-K4 launched, and K2, K3 and K4 against their plain versions
+   at every (rows, frames, k, Cin, Cout, dilation) that K2 ran at in the
+   phase (``KERNEL_BOUND``, ``DW_BOUND`` for K3), the E-TDNN's dilated
+   layers and the scale runs' chunk shapes among them.  Timing lines:
+   every headline metric with its spread and window value, the sweep's
+   rows, dense against masked, f32 against bf16 Adam moments, the scale
+   runs' stage walls.
+
 The line before the last is ``{"kernels": [...]}`` (K1 and K2-K4 in the
 main path's designs, and rows for the "sm80" designs with their main-path
 launch counts, each with its launches over the CLI phase as
@@ -271,7 +294,9 @@ runs (training for K2-K4, both runs' extraction for K1) as
 training for K2-K4, its sharded extraction for K1, summed over the ranks)
 as ``mc_launches``, over phase 16's multi-rank runs (training for K2-K4,
 rank 0's extraction for K1, summed over the ranks) as
-``multicard_launches``, and K1's over the wave phase as
+``multicard_launches``, over phase 17's bench runs (training and the
+scale runs for K2-K4, the headline's and the sweep's extraction for K1)
+as ``bench_launches``, and K1's over the wave phase as
 ``wave_launches``);
 the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full f32
@@ -4284,21 +4309,24 @@ def _profiled(one_iteration, profile_it, out):
     return run
 
 
-def mr_conv_check(CB, dev, rows, frames):
+def mr_conv_check(CB, dev, rows, frames, taps=((5, 1), (7, 1)), cin=512,
+                  cout=512):
     """K2, K3 and K4 ("sm90") against their plain versions at the rows x
-    frames one rank trains on, k=5 and 7, 512 -> 512: the largest
+    frames one rank trains on, for each (k, dilation) of ``taps`` (the
+    wide layers of ``no_dropout``: k=5 and 7, 512 -> 512): the largest
     normalised error of each (bounds ``KERNEL_BOUND``, ``DW_BOUND`` for
     K3)."""
     errs = {}
-    for k in (5, 7):
-        x, w, g = conv_inputs(rows, frames, 512, 512, k, dev, 160 + k)
+    for k, d in taps:
+        x, w, g = conv_inputs(rows, frames, cin, cout, k, dev,
+                              150 + 10 * d + k)
         for name, kern, plain in (
-                ("K2", lambda: CB.conv_fwd(x, w, 1),
-                 lambda: CB.conv_fwd_reference(x, w, 1)),
-                ("K3", lambda: CB.conv_dw(x, g, k, 1),
-                 lambda: CB.conv_dw_reference(x, g, k, 1)),
-                ("K4", lambda: CB.conv_dx(g, w, 1),
-                 lambda: CB.conv_dx_reference(g, w, 1))):
+                ("K2", lambda: CB.conv_fwd(x, w, d),
+                 lambda: CB.conv_fwd_reference(x, w, d)),
+                ("K3", lambda: CB.conv_dw(x, g, k, d),
+                 lambda: CB.conv_dw_reference(x, g, k, d)),
+                ("K4", lambda: CB.conv_dx(g, w, d),
+                 lambda: CB.conv_dx_reference(g, w, d))):
             got, want = kern(), plain()
             if got.shape != want.shape or not torch.isfinite(got).all():
                 errs[name] = math.inf
@@ -4691,6 +4719,110 @@ def phase_multicard(TR, TA, kio, dev, seed, tag, tmp):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the measurement tooling
+# ---------------------------------------------------------------------------
+
+BENCH_SWEEP_RUNS = (2, 5)     # extract_sweep: rounds, calls per round
+BENCH_STEP_RUNS = (2, 1)      # dense and adam_mu: rounds, blocks per round
+SCALE_SPEAKERS = (16, 8, 4)   # scale_sre16: training, SRE pool, evaluation
+SCALE_UTTS = 8                # utterances per speaker (the tool's)
+SCALE_REPEATS = 20            # of the tool's 35 (phase 14's cut), for time
+SCALE_FRAMES_PER_ITER = 2.5e5  # 11 archives: 22 iterations
+
+
+def phase_bench(CB, TK, dev, seed, tag, tmp):
+    """Phase 17: the bench modules on the card, short runs (see the
+    module docstring).  Returns the K1 and K2-K4 launches of the phase."""
+    from xvector_tpu_torch.bench import adam_mu, dense, extract_sweep
+    from xvector_tpu_torch.bench import headline as H
+    from xvector_tpu_torch.bench import scale_sre16
+
+    t_phase = time.perf_counter()
+    shapes, conv_fwd = set(), CB.conv_fwd
+
+    def recorded(x, w, dilation, **kw):
+        # (rows, frames, k, Cin, Cout, dilation) of each K2 call
+        shapes.add((*x.shape[:2], *w.shape, dilation))
+        return conv_fwd(x, w, dilation, **kw)
+
+    CB.conv_fwd = recorded
+    zero_counts(CB, TK)
+    try:
+        t0 = time.perf_counter()
+        head = H.run(seed, quick=True, device=dev, tag=tag)
+        print(f"timing bench headline --quick: {time.perf_counter() - t0:.1f}"
+              f" s [{tag}]")
+        t0 = time.perf_counter()
+        rows = extract_sweep.sweep(*BENCH_SWEEP_RUNS, device=dev, seed=seed,
+                                   tag=tag)["rows"]
+        print(f"timing bench extract_sweep: {len(rows)} shapes in "
+              f"{time.perf_counter() - t0:.1f} s [{tag}]")
+        steps = {}
+        for name, mod in (("dense", dense), ("adam_mu", adam_mu)):
+            t0 = time.perf_counter()
+            steps[name] = mod.compare(*BENCH_STEP_RUNS, device=dev,
+                                      seed=seed, tag=tag)
+            print(f"timing bench {name}: {time.perf_counter() - t0:.1f} s, "
+                  f"{json.dumps(steps[name])} [{tag}]")
+        t0 = time.perf_counter()
+        scale = scale_sre16.run_both(
+            os.path.join(tmp, "scale"), *SCALE_SPEAKERS, SCALE_UTTS,
+            SCALE_FRAMES_PER_ITER, tag=tag, num_repeats=SCALE_REPEATS,
+            device=dev.type)
+        print(f"timing bench scale_sre16 ({'+'.join(map(str, SCALE_SPEAKERS))}"
+              f" speakers x {SCALE_UTTS}, {SCALE_REPEATS} repeats): "
+              f"{time.perf_counter() - t0:.1f} s, materialised "
+              f"{scale['materialised']['wall_s']:.1f} s, streamed "
+              f"{scale['stream']['wall_s']:.1f} s [{tag}]")
+    except H.CheckFailed as exc:
+        fail(f"bench: {exc}")
+    finally:
+        CB.conv_fwd = conv_fwd
+    conv, k1 = dict(CB.route_launches), dict(TK.route_launches)
+    if not (k1["sm90"] and k1["sm80"] and all(
+            conv[f"{k}_sm90"] for k in ("fwd", "dw", "dx"))):
+        fail(f"bench: a kernel was not launched: K1 {k1}, K2-K4 {conv}")
+    bench_conv_checks(CB, dev, shapes)
+    print(json.dumps({"bench_headline": {k: head[k] for k in H.KEYS},
+                      "device": tag}))
+    print(f"bench: phase 17 took {time.perf_counter() - t_phase:.1f} s, "
+          f"launches K1 {k1}, K2-K4 {conv}")
+    return {"conv": conv, "k1": k1}
+
+
+def bench_conv_checks(CB, dev, shapes):
+    """K2, K3 and K4 against their plain versions at every (rows, frames,
+    k, Cin, Cout, dilation) that phase 17's K2 ran at (the E-TDNN's
+    dilated layers and the scale runs' chunk lengths among them); a
+    kernel past ``KERNEL_BOUND`` (``DW_BOUND`` for K3) at any of them
+    fails the phase.  Its launches come after the phase's counts were
+    read."""
+    if not shapes:
+        fail("bench: K2 ran at no shape")
+    t0 = time.perf_counter()
+    groups = {}
+    for b, t, k, cin, cout, d in sorted(shapes):
+        groups.setdefault((b, t, cin, cout), []).append((k, d))
+    worst, where = {"K2": 0.0, "K3": 0.0, "K4": 0.0}, {}
+    for (b, t, cin, cout), taps in sorted(groups.items()):
+        errs = mr_conv_check(CB, dev, b, t, taps, cin, cout)
+        for name, e in errs.items():
+            if name not in where or not e <= worst[name]:
+                worst[name], where[name] = e, f"{b}x{t} {cin}->{cout} {taps}"
+    print(f"bench: K2-K4 against the plain versions at the phase's "
+          f"{len(shapes)} K2 shapes ({len(groups)} rows x frames x "
+          f"channels; k, d in {sorted({(k, d) for _, _, k, _, _, d in shapes})}"
+          f") in {time.perf_counter() - t0:.1f} s: worst "
+          + ", ".join(f"{n} {e:.3g} at {where.get(n)}"
+                      for n, e in worst.items())
+          + f" (bounds {KERNEL_BOUND}, K3 {DW_BOUND})")
+    if (not worst["K2"] <= KERNEL_BOUND or not worst["K4"] <= KERNEL_BOUND
+            or not worst["K3"] <= DW_BOUND):
+        fail("bench: a kernel disagrees with its plain version at a shape "
+             "of phase 17")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4798,6 +4930,9 @@ def main(argv=None) -> int:
     # 16. the entry points on every card of the call
     with tempfile.TemporaryDirectory() as tmp:
         multicard = phase_multicard(TR, TA, kio, dev, args.seed, tag, tmp)
+    # 17. the measurement tooling: bench/ on the card, short runs
+    with tempfile.TemporaryDirectory() as tmp:
+        bench = phase_bench(CB, TK, dev, args.seed, tag, tmp)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the device "
           f"check to here")
 
@@ -4846,6 +4981,10 @@ def main(argv=None) -> int:
             # extraction)
             "multicard_launches": multicard["k1"].get(
                 "sm90" if key == "rule" else "sm80", 0),
+            # ... and over phase 17's bench runs (the headline's and the
+            # sweep's extraction)
+            "bench_launches": bench["k1"]["sm90" if key == "rule"
+                                          else "sm80"],
             **({"launches_by_design": main_routes} if key == "rule" else {}),
         })
     # K2-K4: the main path makes one k=5 and one k=7 call of each per
@@ -4881,6 +5020,9 @@ def main(argv=None) -> int:
             # ... and over phase 16's multi-rank runs of the entry points
             # (training, summed over their ranks)
             "multicard_launches": multicard["conv"].get(route, 0),
+            # ... and over phase 17's bench runs (the training benches and
+            # both scale runs)
+            "bench_launches": bench["conv"][route],
             "max_abs_err": conv_errs[key],
             **mean,
             "bound_by": per_k[0]["bound_by"],

@@ -16,6 +16,11 @@ import torch
 from xvector_tpu.models import tdnn as jt
 from xvector_tpu_torch.backend import plda as BP
 from xvector_tpu_torch.backend import plda_device as PD
+from xvector_tpu_torch.bench import adam_mu as BA
+from xvector_tpu_torch.bench import dense as BD
+from xvector_tpu_torch.bench import extract_sweep as BX
+from xvector_tpu_torch.bench import headline as BH
+from xvector_tpu_torch.bench import scale_sre16 as BS
 from xvector_tpu_torch.cli import extract_embedding, get_egs, run_sre16
 from xvector_tpu_torch.cli import run as RUN
 from xvector_tpu_torch.extract import extractor as TE
@@ -84,7 +89,10 @@ def test_no_jax_import_in_source(path):
                                    "train_plda_device", "Recipe",
                                    "import_reference_h5", "cli_h5",
                                    "cli_run", "cli_get_egs",
-                                   "cli_run_sre16"])
+                                   "cli_run_sre16",
+                                   "bench_measure_train_step",
+                                   "bench_extract_sweep", "bench_dense",
+                                   "bench_adam_mu", "bench_scale_run"])
 def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
     cfg = tt.MODEL_ZOO["tiny"]
     tp, ts = tt.init_params(torch.Generator().manual_seed(0), cfg, 3,
@@ -136,6 +144,13 @@ def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
         "cli_run_sre16": lambda: run_sre16.main([
             f"--work-dir={tmp_path / 'sre16'}",
             f"--sre16-eval-root={tmp_path / 'eval'}", "--model=tiny"]),
+        # the bench modules' measuring functions default to the card
+        "bench_measure_train_step": lambda: BH.measure_train_step("tiny"),
+        "bench_extract_sweep": lambda: BX.measure(2, 64),
+        "bench_dense": lambda: BD.compare(1, 1, model="tiny"),
+        "bench_adam_mu": lambda: BA.compare(1, 1, model="tiny"),
+        "bench_scale_run": lambda: BS.run_variant(
+            str(tmp_path / "corpus"), str(tmp_path / "scale"), False, 5e6),
         "cli_h5": lambda: extract_embedding.main([
             f"--reference-h5={tmp_path / 'model.h5'}", "--model=tiny",
             "--num-targets=3", f"--feats-rspecifier=ark:{tmp_path}/f.ark",

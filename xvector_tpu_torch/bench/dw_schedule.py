@@ -13,41 +13,21 @@ limit.  It exits non-zero without a card."""
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 
 import torch
 
 from ..ops import conv_bwd as CB
+from .common import card_line, cuda_ms
 
 B, T, C = 64, 304, 512
-
-
-def _card() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def _ms(fn, iters=20, warmup=3) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("dw_schedule: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    card = _card()
+    card = card_line()
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clusters = CB.dw_max_clusters(dev)
@@ -68,7 +48,7 @@ def main() -> int:
                     CB.dw_schedule = lambda *a, _c=(bn, s): _c
                     err = float((CB.conv_dw(x, g, k, 1) - want).abs().max()
                                 / want.abs().max())
-                    ms = _ms(lambda: CB.conv_dw(x, g, k, 1))
+                    ms = cuda_ms(lambda: CB.conv_dw(x, g, k, 1))
                     tiles = k * -(-C // CB.DW_BM) * -(-C // bn)
                     blocks = tiles * s
                     waves = tiles / clusters[(bn, s)]
