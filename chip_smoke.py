@@ -16,31 +16,37 @@ Phases; any failure raises and the exit code is non-zero:
    ``g++``), and prints the seconds and the compiler's register/spill
    report;
 3. K1 against its plain version on the card: the full-width ``no_dropout``
-   stack at 32x1024 and at a ragged 32x777 with padded tails, and small
-   batches of the ``prelu``, ``l2_lrelu``, ``tdnn_dilated`` and ``etdnn``
-   stacks, each layer on the design ``layer_route`` picks (K1 v5 "sm90",
-   ``csrc/fwd_sm90.cu``, for layers 1.. with channel counts a multiple of
-   8; K1 v4 "sm80", ``csrc/tdnn_stack.cu``, for layer 0 and etdnn's 1500
-   channels), and K1 v4 on every layer (``design="sm80"``) at 32x1024;
-   max error normalised by max|plain| must stay within 1e-2 and masked
-   frames must be exact zeros;
+   stack at 32x1024, at a ragged 32x777 with padded tails, with 40-dim
+   features (K = 200 -> 256) and with masked tails that end on both sides
+   of the layer-0 kernel's 128-frame tiles, ``etdnn`` at 32x1024, and
+   small batches of the ``prelu``, ``l2_lrelu``, ``tdnn_dilated`` and
+   ``etdnn`` stacks, each layer on the design ``layer_route`` picks
+   ("l0_sm90", the layer-0 kernel of ``csrc/fwd_sm90.cu``, for layer 0; K1
+   v5 "sm90", ``csrc/fwd_sm90.cu``, for every later layer, etdnn's 1500
+   channels padded to 1504; no layer on K1 v4), and K1 v4 on every layer
+   (``design="sm80"``, ``csrc/tdnn_stack.cu``) at 32x1024; then layer 0
+   alone at 32x1024 (F = 23 and 40) and etdnn's 512 -> 1500 layer alone
+   against their plain versions; max error normalised by max|plain| must
+   stay within 1e-2 and masked frames must be exact zeros;
 4. the serving path at full width (``no_dropout``, 7,185 classes, random
    weights from ``--seed``): Kaldi feature and VAD arks written and read
    back, ``preprocess`` (sliding CMVN + VAD), ``XvectorExtractor`` in bf16
    with the fused kernel (the main path, with the launch counts zeroed just
-   before it and read just after: layer 0 on "sm80", layers 1-4 on
-   "sm90") and without it, x-vectors compared
+   before it and read just after: layer 0 on "l0_sm90", layers 1-4 on
+   "sm90", none on "sm80") and without it, x-vectors compared
    (cosine ≥ 0.999), an f32 run on the card checked against the same
    extractor on the CPU on a small input, and the vectors written with
    ``ArkWriter`` and read back;
 5. timing lines tagged with the card: extraction throughput of both runs,
    the serving metric on one full 32x1024 batch (fused and unfused), a
    profiler breakdown of the fused batch (per kernel, per K1 layer, device
-   idle share), and K1 at 32x1024 in both designs (v5 by the rule, v4 on
-   every layer): per layer the kernel's profiled time beside the layer's
-   own bound and ``F.conv1d`` of the layer (a yardstick: conv only, no
-   epilogue), the kernels' sum apart from the wrapper's parameter folding,
-   and the plain version;
+   idle share), and K1 at 32x1024 for ``no_dropout`` and ``etdnn`` in both
+   designs (by the rule, v4 on every layer), on a fold made once: per layer
+   the kernel's profiled time beside the layer's own bound and
+   ``F.conv1d`` of the layer (a yardstick: conv only, no epilogue), the
+   kernels' sum, the plain version of the stack, of layer 0 and of the
+   last layer, and the fold's own time; then layer 0 alone with 23- and
+   40-dim features, its kernel and v4 (profiler), beside its bound;
 6. K2, K3 and K4 (the SAME conv forward, weight gradient and input
    gradient) against their plain versions on the card, on the design
    ``route`` picks ("sm90": K2 v2 ``csrc/fwd_sm90.cu``, K3 v2 and K4 v2
@@ -80,7 +86,7 @@ Phases; any failure raises and the exit code is non-zero:
    save and restore times, a run stopped by its ``stop_check`` and resumed
    that must match an uninterrupted one bit for bit, ``cli.eval_dnn``, and
    ``cli.extract_embedding`` on the serving ark with ``--spk2utt`` (the
-   main extraction path: K1 v4 on layer 0 and v5 on layers 1-4), whose
+   main extraction path: the layer-0 kernel and v5 on layers 1-4), whose
    ark must equal an in-process fused extractor's rows; then, where
    ``h5py`` is installed, ``export_reference_h5`` of ``model_final`` and
    ``cli.extract_embedding --reference-h5``, whose rows must equal the
@@ -97,7 +103,7 @@ Phases; any failure raises and the exit code is non-zero:
    stereo ``#ch1``, SPHERE PCM in both byte orders, µ-law, A-law, embedded
    shorten, a 16 kHz file resampled, a ``cat … |`` pipe; an all-silence
    and a 0.2 s utterance that must be skipped) through ``read_wav_scp`` →
-   ``WaveExtractor`` (bf16, K1: v4 on layer 0, v5 on layers 1-4) →
+   ``WaveExtractor`` (bf16, K1: the layer-0 kernel, v5 on layers 1-4) →
    ``ArkWriter`` (the main path, launch counts zeroed just before and read
    just after), then: the golden fixtures through ``mfcc`` on the card
    (rtol 2e-4, atol 1e-3); the batched front end on the card against the
@@ -153,7 +159,7 @@ Phases; any failure raises and the exit code is non-zero:
    ``iter_plan_minibatches`` must yield archive 0's minibatches byte for
    byte), ``train`` (bf16, blocks of 16, 2 epochs: 6 K2/K3/K4 calls per
    minibatch step, all "sm90", and a falling loss), ``extract`` (bf16,
-   K1: v4 on layer 0, v5 on layers 1-4) and ``extract_from_wav`` (the
+   K1: the layer-0 kernel, v5 on layers 1-4) and ``extract_from_wav`` (the
    ``WaveExtractor``, K1 likewise), and ``score`` (enrolment on half of
    each speaker's clean utterances, test on the rest; EER at most 0.25
    for both x-vector sets).  Then ``cli.run --synthetic-speakers ...
@@ -178,7 +184,7 @@ Phases; any failure raises and the exit code is non-zero:
    MUSAN (noise, music, speech) and RIRS trees on disk.  Run 1 is
    ``run_sre16.main`` in-process with --extract-from-wav, MUSAN and RIRS
    augmentation and final combination (the main path: K2-K4 6 "sm90"
-   calls per training step, K1 v4 on layer 0 and v5 on layers 1-4 in
+   calls per training step, K1's layer-0 kernel and v5 on layers 1-4 in
    both extraction routes; counts zeroed just before, read just after);
    run 2 is ``python -m xvector_tpu_torch.cli.run_sre16 ... --stage 7``
    without it, in a child process (through ``runpy``, which sends its
@@ -249,7 +255,8 @@ Phases; any failure raises and the exit code is non-zero:
    ``cli.run`` (16 speakers x 6 utterances, bf16) on one process and on
    the ranks (on one card: 3 gloo ranks, on W cards: W NCCL ranks and, where
    W > 3, 3 of them), whose 8-row minibatches 3 does not divide: rank 0
-   alone extracts (K1 v4 + v5), every rank trains through K2-K4 and
+   alone extracts (K1: the layer-0 kernel and v5), every rank trains
+   through K2-K4 and
    holds them against their plain versions at every shape it trained at
    (rows per rank x padded chunk length), the EER
    within one target trial of one process's, and rank 0's x-vectors
@@ -345,10 +352,12 @@ TRAIN_B, TRAIN_T = 64, 304            # the recipe's minibatch (bench.py)
 TRAIN_FULL, TRAIN_RAGGED_LEN = 32, 250
 TRAIN_CLASSES = 7185
 # the CUDA kernels of K2-K4 (csrc/conv_bwd.cu, csrc/conv_sm90.cu,
-# csrc/fwd_sm90.cu) and of K1's layers (csrc/tdnn_stack.cu, fwd_sm90.cu)
+# csrc/fwd_sm90.cu) and of K1's layers (csrc/fwd_sm90.cu: layer 0 and v5;
+# csrc/tdnn_stack.cu: v4)
 KERNEL_NAMES = ("shift_gemm_kernel", "dw_gemm_kernel", "dw_reduce_kernel",
                 "dw_sm90_kernel", "dx_sm90_kernel", "fwd_sm90_kernel")
-K1_KERNEL_NAMES = ("tdnn_layer_kernel", "fwd_sm90_kernel")
+K1_KERNEL_NAMES = ("tdnn_layer_kernel", "fwd_sm90_kernel",
+                   "tdnn_l0_sm90_kernel")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -378,8 +387,8 @@ def perturb_bn(params, state, gen):
                                   .to(dev))
 
 
-def model(tt, name, seed, num_classes, dev):
-    cfg = tt.MODEL_ZOO[name]
+def model(tt, name, seed, num_classes, dev, **overrides):
+    cfg = replace(tt.MODEL_ZOO[name], **overrides)
     gen = torch.Generator().manual_seed(seed)
     params, state = tt.init_params(gen, cfg, num_classes, device=dev)
     perturb_bn(params, state, gen)
@@ -391,6 +400,13 @@ def tail_mask(bsz, t, gen):
     lens = torch.randint(t // 2, t + 1, (bsz,), generator=gen)
     lens[0] = t
     return (torch.arange(t)[None, :] < lens[:, None]).to(torch.float32)
+
+
+def k1_by_rule(k1, layers=5) -> bool:
+    """K1 launches by design as the rule gives them: the layer-0 kernel
+    once per stack call, v5 on every later layer, K1 v4 never."""
+    return (k1.get("l0_sm90", 0) > 0 and k1.get("sm80", 0) == 0
+            and k1.get("sm90", 0) == (layers - 1) * k1["l0_sm90"])
 
 
 def cuda_ms(fn, iters=20, warmup=3) -> float:
@@ -423,29 +439,48 @@ def stack_work(cfg, bsz, t):
 # phases
 # ---------------------------------------------------------------------------
 
+def tile_edge_mask(bsz, t):
+    """(B, T) mask whose rows end at lengths on both sides of the layer-0
+    kernel's 128-frame tiles (127, 128, 129, 255, 257, ...)."""
+    lens = torch.tensor([t, 127, 128, 129, 255, 257, 640, t - 1][:bsz])
+    return (torch.arange(t)[None, :] < lens[:, None]).to(torch.float32)
+
+
 def phase_kernel_checks(tt, TK, dev, seed):
     """K1 against its plain version, each layer on the design the rule
-    picks (design None) or on v4 ("sm80"); returns the max-abs errors."""
-    cases = [("no_dropout", 32, 1024, None), ("no_dropout", 32, 1024, "sm80"),
-             ("no_dropout", 32, 777, None), ("prelu", 3, 333, None),
-             ("l2_lrelu", 3, 333, None), ("tdnn_dilated", 3, 333, None),
-             ("etdnn", 3, 333, None)]
+    picks (design None: the layer-0 kernel, then v5; never v4) or on v4
+    ("sm80"); then layer 0 alone at 32x1024 (F = 23, and 40: K = 200 ->
+    256) and etdnn's 512 -> 1500 layer alone (v5, padded to 1504) against
+    their plain versions.  Returns the max-abs errors by case."""
+    cases = [("no_dropout", 32, 1024, None, {}, "tails"),
+             ("no_dropout", 32, 1024, "sm80", {}, "tails"),
+             ("no_dropout", 32, 777, None, {}, "tails"),
+             ("no_dropout", 32, 1024, None, {"feat_dim": 40}, "tails"),
+             ("no_dropout", 8, 1000, None, {}, "tile edges"),
+             ("etdnn", 32, 1024, None, {}, "tails"),
+             ("prelu", 3, 333, None, {}, "tails"),
+             ("l2_lrelu", 3, 333, None, {}, "tails"),
+             ("tdnn_dilated", 3, 333, None, {}, "tails"),
+             ("etdnn", 3, 333, None, {}, "tails")]
     results = {}
-    for i, (name, bsz, t, design) in enumerate(cases):
-        cfg, params, state = model(tt, name, seed + i, 10, dev)
+    for i, (name, bsz, t, design, kw, masks) in enumerate(cases):
+        cfg, params, state = model(tt, name, seed + i, 10, dev, **kw)
         gen = torch.Generator().manual_seed(seed + 100 + i)
         x = torch.randn(bsz, t, cfg.feat_dim, generator=gen).to(dev)
-        mask = tail_mask(bsz, t, gen).to(dev)
+        mask = (tail_mask(bsz, t, gen) if masks == "tails"
+                else tile_edge_mask(bsz, t)).to(dev)
         before = dict(TK.route_launches)
         got = TK.fused_frame_stack(cfg, params, state, x, mask,
                                    design=design)
         torch.cuda.synchronize()
         designs = TK._layer_designs(cfg, design)
         took = {n: TK.route_launches[n] - before[n] for n in before}
-        if took != {n: designs.count(n) for n in before}:
+        if took != {n: designs.count(n) for n in before} or (
+                design is None and took["sm80"]):
             fail(f"K1 {name}: layers ran on {took}, expected {designs}")
         want = TK.fused_frame_stack_reference(cfg, params, state, x, mask)
-        label = (f"K1 {name} {bsz}x{t} "
+        label = (f"K1 {name}" + "".join(f" {k}={v}" for k, v in kw.items())
+                 + f" {bsz}x{t} ({masks}) "
                  + ("/".join(designs) if design is None
                     else f"all {design}"))
         if got.shape != want.shape or got.dtype != torch.float32:
@@ -460,7 +495,39 @@ def phase_kernel_checks(tt, TK, dev, seed):
               f"{KERNEL_BOUND})")
         if norm_err > KERNEL_BOUND or bool(got[mask == 0].any()):
             fail(f"{label} disagrees with its plain version")
-        results[(name, bsz, t, design)] = abs_err
+        results[(name, bsz, t, design) if not kw else (name, kw["feat_dim"])
+                ] = abs_err
+    # single layers at 32x1024: layer 0's kernel and etdnn's last layer
+    for i, (name, kw, l) in enumerate((("no_dropout", {}, 0),
+                                       ("no_dropout", {"feat_dim": 40}, 0),
+                                       ("etdnn", {}, 9))):
+        cfg, params, state = model(tt, name, seed + 50 + i, 10, dev, **kw)
+        folded = TK.fold_stack(cfg, params, state)
+        gen = torch.Generator().manual_seed(seed + 150 + i)
+        mask = tail_mask(32, 1024, gen).to(dev)
+        cin = folded.layers[l][0].shape[1]
+        h = torch.randn(32, 1024, cin, generator=gen).to(
+            dev, torch.float32 if l == 0 else torch.bfloat16)
+        design = TK._layer_designs(cfg)[l]
+        before = TK.route_launches[design]
+        got = TK.fused_layer(cfg, folded, l, h, mask)
+        torch.cuda.synchronize()
+        if TK.route_launches[design] != before + 1:
+            fail(f"K1 {name} layer {l} alone did not launch {design}")
+        want = TK.layer_reference(cfg, folded, l, h, mask)
+        want = want[..., :got.shape[-1]]
+        abs_err = float((got.float() - want).abs().max())
+        nerr = abs_err / float(want.abs().max())
+        dtype = str(got.dtype).removeprefix("torch.")
+        label = (f"{name}" + "".join(f" {k}={v}" for k, v in kw.items())
+                 + f" layer {l} alone 32x1024 {design} "
+                 f"({tuple(got.shape)} {dtype})")
+        print(f"K1 check {label}: max_abs_err={abs_err:.6g} normalised="
+              f"{nerr:.3g} (bound {KERNEL_BOUND})")
+        if (nerr > KERNEL_BOUND or bool(got[mask == 0].any())
+                or not torch.isfinite(got).all()):
+            fail(f"K1 {label} disagrees with its plain version")
+        results[(name, cfg.feat_dim, "layer", l)] = abs_err
     return results
 
 
@@ -523,14 +590,15 @@ def phase_serving(tt, TE, TK, kio, dev, seed, tag):
             fail("the fused run launched K1 no time")
         if TK.launches != main_launches:
             fail("the unfused run launched K1")
-        # layer 0 (f32 features) on v4, layers 1-4 on v5
+        # layer 0 (f32 features) on its Hopper kernel, layers 1-4 on v5,
+        # none on v4
         designs = TK._layer_designs(cfg)
         calls = main_launches // cfg.num_frame_layers
         want_routes = {n: calls * designs.count(n) for n in main_routes}
         print(f"serving: K1 layer launches on the main path {main_launches} "
               f"({calls} stack calls), by design {main_routes} (expected "
               f"{want_routes}: layers {designs})")
-        if main_routes != want_routes:
+        if main_routes != want_routes or main_routes["sm80"]:
             fail("serving: a K1 layer launch left its design")
         times = {True: [s_fused], False: [s_plain]}
         for i in range(EXTRACT_PAIRS - 1):   # alternate which runs first
@@ -696,7 +764,7 @@ def bound(flops, nbytes):
 def k1_profile(TK, cfg, params, state, x, mask, design, calls=5):
     """Device time of one stack call as the profiler sees it: each layer's
     kernel (us, median over ``calls``) and the rest (the wrapper's
-    parameter folding: rsqrt, mul, sub and casts).  One more call goes
+    parameter folding when ``params`` is not a fold).  One more call goes
     first and is left out (the profiler may drop the first device event
     it records)."""
     from torch.profiler import ProfilerActivity, profile
@@ -720,18 +788,74 @@ def k1_profile(TK, cfg, params, state, x, mask, design, calls=5):
     return [statistics.median(layer[l::n]) for l in range(n)], rest / calls
 
 
-def phase_k1_timing(tt, TK, dev, seed, tag):
-    """K1 at 32x1024 in both designs: the wrapper's time (CUDA events),
-    each layer's kernel time (profiler) beside its bound and F.conv1d of
-    the layer, the kernels' sum, and the plain version."""
+def layer_profile_us(TK, cfg, folded, l, h, mask, design, calls=5):
+    """Device time of layer ``l`` alone (``fused_layer``) by the profiler:
+    the median over ``calls`` of its kernel, after one call left out."""
+    from torch.profiler import ProfilerActivity, profile
+    TK.fused_layer(cfg, folded, l, h, mask, design=design)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            TK.fused_layer(cfg, folded, l, h, mask, design=design)
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and any(k in e.name for k in K1_KERNEL_NAMES)]
+    return statistics.median(us) if us else None
+
+
+def phase_k1_layer0_timing(tt, TK, dev, seed, tag):
+    """Layer 0 alone at 32x1024 with 23- and 40-dim features (K = 115 ->
+    128, 200 -> 256): the layer-0 kernel and v4 by the profiler, beside
+    the layer's bound and its plain version (CUDA events)."""
+    out = {}
+    for feat in (23, 40):
+        cfg, params, state = model(tt, "no_dropout", seed, 10, dev,
+                                   feat_dim=feat)
+        folded = TK.fold_stack(cfg, params, state)
+        gen = torch.Generator().manual_seed(seed + 9)
+        x = torch.randn(32, 1024, feat, generator=gen).to(dev)
+        mask = tail_mask(32, 1024, gen).to(dev)
+        us = {d: layer_profile_us(TK, cfg, folded, 0, x, mask, d)
+              for d in ("sm90", "sm80")}
+        plain_ms = cuda_ms(lambda: TK.l0_reference(cfg, folded, x, mask))
+        bound_ms, by = bound(*layer_work(cfg, 32, 1024)[0])
+        print(f"timing K1 layer 0 alone 32x1024 F={feat} (profiled kernel "
+              f"us): layer-0 kernel {us['sm90']:.1f}, v4 {us['sm80']:.1f}; "
+              f"bound {bound_ms * 1e3:.1f} by {by} "
+              f"({bound_ms * 1e3 / us['sm90']:.1%}); plain "
+              f"{plain_ms:.4f} ms [{tag}]")
+        out[feat] = {"ms": us["sm90"] / 1e3, "v4_ms": us["sm80"] / 1e3,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms}
+    return out
+
+
+def phase_k1_timing(tt, TK, dev, seed, tag, name="no_dropout"):
+    """K1 at 32x1024 in both designs, the parameters folded once as the
+    extractors fold them: the wrapper's time (CUDA events), each layer's
+    kernel time (profiler) beside its bound and F.conv1d of the layer, the
+    kernels' sum, the plain version; and the plain version of layer 0 and
+    of the last layer alone (the kernel rows' plain_ms), the fold's time,
+    and the v4 launches the comparison made."""
     bsz, t = 32, 1024
-    cfg, params, state = model(tt, "no_dropout", seed, 10, dev)
+    cfg, params, state = model(tt, name, seed, 10, dev)
     gen = torch.Generator().manual_seed(seed + 7)
     x = torch.randn(bsz, t, cfg.feat_dim, generator=gen).to(dev)
     mask = tail_mask(bsz, t, gen).to(dev)
     iters, warmup = 20, 3
+    fold_ms = cuda_ms(lambda: TK.fold_stack(cfg, params, state), iters,
+                      warmup)
+    folded = TK.fold_stack(cfg, params, state)
     plain_ms = cuda_ms(lambda: TK.fused_frame_stack_reference(
-        cfg, params, state, x, mask), iters, warmup)
+        cfg, folded, None, x, mask), iters, warmup)
+    last = cfg.num_frame_layers - 1
+    h_last = torch.randn(bsz, t, folded.layers[last][0].shape[1],
+                         generator=gen).to(dev, torch.bfloat16)
+    layer_plain_ms = {
+        0: cuda_ms(lambda: TK.l0_reference(cfg, folded, x, mask), iters,
+                   warmup),
+        last: cuda_ms(lambda: TK.layer_reference(cfg, folded, last, h_last,
+                                                 mask), iters, warmup)}
     # the extractor's unfused bf16 frame stack (torch matmuls), for context
     unfused_ms = cuda_ms(lambda: tt.frame_stack(
         cfg, params, state, x, mask, compute_dtype=torch.bfloat16),
@@ -751,29 +875,33 @@ def phase_k1_timing(tt, TK, dev, seed, tag):
             xc, wc, padding=(k - 1) // 2 * d, dilation=d), iters, warmup))
         cin = c
     out = {}
-    for design in ("sm80", None, None, "sm80"):   # v4, v5, v5, v4
-        name = "sm80" if design else "rule"
+    forced = TK.route_launches["sm80"]
+    for design in ("sm80", None, None, "sm80"):   # v4, rule, rule, v4
+        key = "sm80" if design else "rule"
         before = TK.launches
         ms = cuda_ms(lambda: TK.fused_frame_stack(
-            cfg, params, state, x, mask, design=design), iters, warmup)
+            cfg, folded, None, x, mask, design=design), iters, warmup)
         per_call = (TK.launches - before) / (iters + warmup)
-        prof = k1_profile(TK, cfg, params, state, x, mask, design)
-        out.setdefault(name, []).append((ms, per_call, prof))
+        prof = k1_profile(TK, cfg, folded, None, x, mask, design)
+        out.setdefault(key, []).append((ms, per_call, prof))
+    forced = TK.route_launches["sm80"] - forced
     designs = {"rule": TK._layer_designs(cfg),
                "sm80": TK._layer_designs(cfg, "sm80")}
-    res = {}
-    for name, runs in out.items():
+    res = {"fold_ms": fold_ms, "layer_plain_ms": layer_plain_ms,
+           "conv_ms": conv_ms, "layer_bounds": [bound(*w) for w in layers],
+           "forced_v4_launches": forced}
+    for key, runs in out.items():
         ms = statistics.mean(r[0] for r in runs)
         per_call = runs[0][1]
         profs = [r[2] for r in runs if r[2] is not None]
-        label = ("v5 by the rule (" + "/".join(designs[name]) + ")"
-                 if name == "rule" else "v4 on every layer (all sm80)")
+        label = ("by the rule (" + "/".join(designs[key]) + ")"
+                 if key == "rule" else "v4 on every layer (all sm80)")
         if profs:
             layer_us = [statistics.mean(p[0][l] for p in profs)
                         for l in range(cfg.num_frame_layers)]
-            fold_us = statistics.mean(p[1] for p in profs)
+            rest_us = statistics.mean(p[1] for p in profs)
             kernel_ms = sum(layer_us) / 1e3
-            print(f"timing K1 no_dropout {bsz}x{t} {label} per layer "
+            print(f"timing K1 {name} {bsz}x{t} {label} per layer "
                   "(profiled kernel us; bound us; share; F.conv1d us): "
                   + "; ".join(
                       f"L{l} {d} k={cfg.kernel_sizes[l]} {cfg.channels[l]}ch "
@@ -782,30 +910,35 @@ def phase_k1_timing(tt, TK, dev, seed, tag):
                       f"{bound(*layers[l])[0] * 1e3 / us:.1%}; "
                       f"{conv_ms[l] * 1e3:.1f}"
                       for l, (us, d) in enumerate(zip(layer_us,
-                                                      designs[name])))
+                                                      designs[key])))
                   + f" [{tag}]")
         else:
-            layer_us, fold_us, kernel_ms = None, None, None
-            print(f"timing K1 {label}: the profiler recorded no layer "
+            layer_us, rest_us, kernel_ms = None, None, None
+            print(f"timing K1 {name} {label}: the profiler recorded no layer "
                   f"kernels; kernel-only time not measured [{tag}]")
-        print(f"timing K1 no_dropout {bsz}x{t} {label}: kernels "
+        print(f"timing K1 {name} {bsz}x{t} {label}: kernels "
               + (f"{kernel_ms:.4f} ms/call = {flops / kernel_ms / 1e9:.1f} "
                  f"TFLOP/s = {bound_ms / kernel_ms:.1%} of bound; wrapper "
-                 f"{ms:.4f} ms/call (CUDA events, parameter folding "
-                 f"{fold_us:.1f} us of device time per call included), "
+                 f"{ms:.4f} ms/call on a fold made once (CUDA events; other "
+                 f"device work {rest_us:.1f} us per call), "
                  if kernel_ms else f"not measured; wrapper {ms:.4f} ms, ")
               + f"{per_call:g} launches/call, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.4g} FLOP, "
               f"{nbytes / 1e6:.1f} MB); unfused bf16 frame_stack "
               f"{unfused_ms:.4f} ms [{tag}]")
-        res[name] = {"ms": kernel_ms if kernel_ms else ms,
-                     "wrapper_ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "layers_us": layer_us, "fold_us": fold_us}
-    v4, v5 = res["sm80"], res["rule"]
-    print(f"timing K1 no_dropout {bsz}x{t}: v5 kernels {v5['ms']:.4f} ms vs "
-          f"v4 {v4['ms']:.4f} ms = {v4['ms'] / v5['ms']:.2f}x; wrappers "
-          f"{v5['wrapper_ms']:.4f} vs {v4['wrapper_ms']:.4f} ms [{tag}]")
+        res[key] = {"ms": kernel_ms if kernel_ms else ms,
+                    "wrapper_ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "layers_us": layer_us, "rest_us": rest_us}
+    v4, rule = res["sm80"], res["rule"]
+    print(f"timing K1 {name} {bsz}x{t}: by the rule kernels "
+          f"{rule['ms']:.4f} ms vs v4 {v4['ms']:.4f} ms = "
+          f"{v4['ms'] / rule['ms']:.2f}x; wrappers {rule['wrapper_ms']:.4f} "
+          f"vs {v4['wrapper_ms']:.4f} ms; plain layer 0 "
+          f"{layer_plain_ms[0]:.4f} ms, layer {last} "
+          f"{layer_plain_ms[last]:.4f} ms; fold_stack {fold_ms:.4f} ms "
+          f"(once per extractor); K1 v4 launches in this comparison "
+          f"{forced} [{tag}]")
     return res
 
 
@@ -1442,18 +1575,18 @@ def phase_cli(TR, TA, CB, TK, kio, dev, seed, tag, tmp):
         f"--output-ark={out_ark}", f"--spk2utt={spk2utt}", f"--device={dev}"])
     k1_launches, k1_routes = TK.launches, dict(TK.route_launches)
     xv = dict(kio.read_vec_flt_scp(out_ark.replace(".ark", ".scp")))
-    calls = k1_routes["sm80"]
+    calls = k1_routes["l0_sm90"]
     print(f"cli: extract_embedding: {out[-1]}; {len(xv)} x-vectors in "
           f"{extract_s:.3f} s = {len(xv) / extract_s:.1f} x-vectors/s "
           f"host-inclusive (checkpoint restore, ark read, extraction, ark "
           f"and speaker-mean writes) [{tag}]")
     print(f"cli: K1 layer launches over the extract_embedding run "
-          f"{k1_launches}, by design {k1_routes} (expected v4 on layer 0 and "
-          f"v5 on layers 1-4: {calls} and {4 * calls})")
-    if not calls or k1_routes["sm90"] != 4 * calls \
-            or k1_launches != 5 * calls:
-        fail("cli: extract_embedding did not run K1 v4 on layer 0 and v5 "
-             "on layers 1-4")
+          f"{k1_launches}, by design {k1_routes} (expected the layer-0 "
+          f"kernel on layer 0 and v5 on layers 1-4: {calls} and "
+          f"{4 * calls}; v4 none)")
+    if not k1_by_rule(k1_routes) or k1_launches != 5 * calls:
+        fail("cli: extract_embedding did not run K1's layer-0 kernel on "
+             "layer 0 and v5 on layers 1-4")
     spk = dict(kio.read_vec_flt_scp(out_ark.replace(".ark", "_spk.scp")))
     if len(spk) != CLI_SPEAKERS:
         fail(f"cli: {len(spk)} speaker means, expected {CLI_SPEAKERS}")
@@ -1888,16 +2021,16 @@ def phase_wave(tt, TE, CB, TK, kio, dev, seed, tag, tmp):
     routes = dict(TK.route_launches)
     launches = TK.launches
     xv_main = dict(kio.read_vec_flt_scp(out_ark.replace(".ark", ".scp")))
-    calls = routes["sm80"]
+    calls = routes["l0_sm90"]
     print(f"wave: main path read_wav_scp -> WaveExtractor (bf16, fused) -> "
           f"ArkWriter: {len(xv_main)} x-vectors in {main_s:.3f} s host-"
           f"inclusive (decode, resample and the first call of each bucket "
           f"included); K1 layer launches {launches}, by design {routes} "
-          f"(expected v4 on layer 0 and v5 on layers 1-4: {calls} and "
-          f"{4 * calls}) [{tag}]")
-    if not calls or routes["sm90"] != 4 * calls or launches != 5 * calls:
-        fail("wave: the main path did not run K1 v4 on layer 0 and v5 on "
-             "layers 1-4")
+          f"(expected the layer-0 kernel on layer 0 and v5 on layers 1-4: "
+          f"{calls} and {4 * calls}; v4 none) [{tag}]")
+    if not k1_by_rule(routes) or launches != 5 * calls:
+        fail("wave: the main path did not run K1's layer-0 kernel on layer "
+             "0 and v5 on layers 1-4")
     kept = set(fmt) - skipped
     if set(xv_main) != kept:
         fail(f"wave: the ark holds {sorted(set(xv_main) ^ kept)} against "
@@ -2148,6 +2281,8 @@ def phase_wave_timing(tt, TE, TK, dev, tag, waves, mdl, files):
     stages = ("upload", "mfcc_batch", "energy_vad_batch",
               "sliding_cmvn_batch", "compact_voiced", "K1", "pooling+embed")
 
+    folded = TK.fold_stack(cfg, ex.params, ex.state)   # once, as ex does
+
     def staged():
         with record_function("upload"):       # pinned, as the extractor
             w, n = ex._upload(wb), ex._upload(lb)
@@ -2160,7 +2295,7 @@ def phase_wave_timing(tt, TE, TK, dev, tag, waves, mdl, files):
         with record_function("compact_voiced"):
             feats, vmask = TF.compact_voiced(feats, vad)
         with record_function("K1"):
-            h = TK.fused_frame_stack(cfg, ex.params, ex.state, feats, vmask)
+            h = TK.fused_frame_stack(cfg, folded, None, feats, vmask)
         with record_function("pooling+embed"):
             pooled = tt.stats_pooling(h, vmask[..., None])
             e0 = ex.params["embed"][0]
@@ -2846,7 +2981,7 @@ def phase_recipe(CB, TK, TA, kio, dev, seed, tag, tmp):
     on the card, dither on) → make_egs (every archive through libxta;
     the stream route must give archive 0's minibatches byte for byte) →
     train (K2-K4, 6 calls per minibatch step, all "sm90"; the loss must
-    fall) → extract (K1 in bf16: v4 on layer 0, v5 on layers 1-4) and
+    fall) → extract (K1 in bf16: the layer-0 kernel, v5 on layers 1-4) and
     extract_from_wav (K1) → score (EER at most RECIPE_EER_BOUND); each
     stage is a main path, its counts zeroed just before it and read just
     after.  Then ``cli.run`` (a synthetic corpus, --extract-from-wav) and
@@ -3057,10 +3192,9 @@ def phase_recipe(CB, TK, TA, kio, dev, seed, tag, tmp):
                 v.shape == (512,) and np.isfinite(v).all()
                 for v in xv.values()):
             fail(f"recipe: {how} gave {len(xv)} x-vectors or bad ones")
-        if not (k1[how]["sm80"] > 0
-                and k1[how]["sm90"] == 4 * k1[how]["sm80"]):
-            fail(f"recipe: K1 did not run v4 on layer 0 and v5 on layers "
-                 f"1-4 in {how}")
+        if not k1_by_rule(k1[how]):
+            fail(f"recipe: K1 did not run the layer-0 kernel on layer 0 and "
+                 f"v5 on layers 1-4 in {how}")
     cos = [cosine(xvs["extract"][u], xvs["extract_from_wav"][u])
            for u in data.utts]
     print(f"recipe: feature-ark vs waveform x-vectors (dither on in stage 1 "
@@ -3113,7 +3247,7 @@ def phase_recipe(CB, TK, TA, kio, dev, seed, tag, tmp):
               f"design {routes_cli}, K1 {k1_cli} [{tag}]")
         if not (routes_cli["fwd_sm90"] > 0 and routes_cli["fwd_sm90"]
                 == routes_cli["dw_sm90"] == routes_cli["dx_sm90"]
-                and k1_cli["sm90"] == 4 * k1_cli["sm80"] > 0):
+                and k1_by_rule(k1_cli)):
             fail("recipe: cli.run did not train through K2-K4 and extract "
                  "through K1")
         if not rerun:
@@ -3146,7 +3280,7 @@ def phase_recipe(CB, TK, TA, kio, dev, seed, tag, tmp):
     if differ:
         fail("recipe: get_egs archives differ from make_egs's")
     return routes, {d: k1["extract"][d] + k1["extract_from_wav"][d]
-                    for d in ("sm90", "sm80")}
+                    for d in TK.route_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -3550,9 +3684,9 @@ def phase_sre16(CB, TK, kio, dev, seed, tag, tmp):
           f"{want_routes}); K1 layer launches by design {k1}")
     if routes != want_routes or steps == 0:
         fail("sre16 run 1: K2/K3/K4 did not run 6 sm90 calls per step")
-    if not k1["sm90"] == 4 * k1["sm80"] > 0:
-        fail("sre16 run 1: K1 did not run v4 on layer 0 and v5 on layers "
-             "1-4")
+    if not k1_by_rule(k1):
+        fail("sre16 run 1: K1 did not run the layer-0 kernel on layer 0 "
+             "and v5 on layers 1-4")
     if not os.path.isdir(os.path.join(work, "exp", "model_combined")):
         fail("sre16 run 1: no final combination")
 
@@ -3602,9 +3736,9 @@ def phase_sre16(CB, TK, kio, dev, seed, tag, tmp):
         fail("sre16 run 2: --stage 7 did not keep the egs and the model")
     if any(child["conv"].values()):
         fail("sre16 run 2: --stage 7 trained again")
-    if not child["k1"]["sm90"] == 4 * child["k1"]["sm80"] > 0:
-        fail("sre16 run 2: K1 did not run v4 on layer 0 and v5 on layers "
-             "1-4")
+    if not k1_by_rule(child["k1"]):
+        fail("sre16 run 2: K1 did not run the layer-0 kernel on layer 0 "
+             "and v5 on layers 1-4")
     ark_xv = dict(kio.read_vec_flt_scp(os.path.join(
         work, "xvector_sre16_test.scp")))
     cos = [cosine(wav_xv[u], ark_xv[u]) for u in wav_xv]
@@ -3612,7 +3746,7 @@ def phase_sre16(CB, TK, kio, dev, seed, tag, tmp):
           f"feature arks (run 2): cosine median "
           f"{np.median(cos):.6f}, min {min(cos):.6f} over {len(cos)}; phase "
           f"wall {time.perf_counter() - t_phase:.1f} s [{tag}]")
-    return routes, {d: k1[d] + child["k1"][d] for d in ("sm90", "sm80")}
+    return routes, {d: k1[d] + child["k1"][d] for d in TK.route_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4618,9 +4752,9 @@ def phase_multicard(TR, TA, kio, dev, seed, tag, tmp):
               f"K2-K4 per rank {[trained[r]['conv'] for r in sorted(trained)]}"
               f" [{tag}]")
         k1 = top["k1"]
-        if not k1["sm90"] == 4 * k1["sm80"] > 0:
+        if not k1_by_rule(k1):
             fail(f"multicard part B {label}: rank 0 did not extract through "
-                 "K1")
+                 "K1 by the rule")
         for r in trained.values():
             c = r["conv"]
             if not c["fwd_sm90"] == c["dw_sm90"] == c["dx_sm90"] > 0:
@@ -4780,7 +4914,7 @@ def phase_bench(CB, TK, dev, seed, tag, tmp):
     finally:
         CB.conv_fwd = conv_fwd
     conv, k1 = dict(CB.route_launches), dict(TK.route_launches)
-    if not (k1["sm90"] and k1["sm80"] and all(
+    if not (k1["sm90"] and k1["l0_sm90"] and not k1["sm80"] and all(
             conv[f"{k}_sm90"] for k in ("fwd", "dw", "dx"))):
         fail(f"bench: a kernel was not launched: K1 {k1}, K2-K4 {conv}")
     bench_conv_checks(CB, dev, shapes)
@@ -4880,6 +5014,8 @@ def main(argv=None) -> int:
     phase_batch_timing(tt, TE, dev, args.seed, tag)
     phase_profile(tt, TE, dev, args.seed, tag)
     k1 = phase_k1_timing(tt, TK, dev, args.seed, tag)
+    k1_etdnn = phase_k1_timing(tt, TK, dev, args.seed, tag, "etdnn")
+    k1_l0 = phase_k1_layer0_timing(tt, TK, dev, args.seed, tag)
 
     # 6. K2, K3 and K4 against their plain versions
     conv_errs = phase_conv_checks(CB, dev, args.seed)
@@ -4936,56 +5072,82 @@ def main(argv=None) -> int:
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the device "
           f"check to here")
 
-    # K1: the main path runs layer 0 on v4 and layers 1-4 on v5; "ms" is the
-    # layer kernels' own time per stack call (profiler), without the
-    # wrapper's parameter folding.  Each row counts the main path's launches
-    # of its own source: v5's (layers 1-4) and v4's (layer 0); the sm80
-    # row's times are v4 on every layer.
+    # K1: the main path runs layer 0 on its Hopper kernel and layers 1-4 on
+    # v5, no layer on v4.  Rows: the stack by the rule ("ms": its layer
+    # kernels per call, profiled; launches: v5's), layer 0's kernel alone
+    # ("ms": its profiled time in the stack; launches: its own), and v4
+    # ("ms": v4 on every layer; launches 0 on every path, its forced ones
+    # apart).  Per-path launches count each row's own design.
     kernels = []
-    for key, label, source, launches in (
-            ("rule", "tdnn_frame_stack", "fwd_sm90.cu", main_routes["sm90"]),
-            ("sm80", "tdnn_frame_stack_sm80", "tdnn_stack.cu",
-             main_routes["sm80"])):
+    for key, label, source, design in (
+            ("rule", "tdnn_frame_stack", "fwd_sm90.cu", "sm90"),
+            ("l0", "tdnn_layer0_sm90", "fwd_sm90.cu", "l0_sm90"),
+            ("sm80", "tdnn_frame_stack_sm80", "tdnn_stack.cu", "sm80")):
+        if key == "l0":
+            ms_bound, by = k1["layer_bounds"][0]
+            times = {"ms": (k1["rule"]["layers_us"][0] / 1e3
+                            if k1["rule"]["layers_us"] else None),
+                     "plain_ms": k1["layer_plain_ms"][0],
+                     "bound_ms": ms_bound, "bound_by": by}
+            err = errs[("no_dropout", 23, "layer", 0)]
+        else:
+            times = {m: k1[key][m] for m in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by")}
+            err = errs[("no_dropout", 32, 1024,
+                        None if key == "rule" else "sm80")]
         kernels.append({
             "name": label,
             "route": "cuda",
             "source": f"xvector_tpu_torch/csrc/{source}",
             "replaces": "xvector_tpu/ops/tdnn_kernel.py:99",
-            "launches": launches,
-            "max_abs_err": errs[("no_dropout", 32, 1024,
-                                 None if key == "rule" else "sm80")],
-            **{m: k1[key][m] for m in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by")},
-            # no single PyTorch call computes the whole stack
+            "launches": main_routes[design],
+            "max_abs_err": err,
+            **times,
+            # no single PyTorch call computes a TDNN layer (conv, bias,
+            # activation, batch norm, mask); F.conv1d is the yardstick
             "library_ms": None,
-            "wrapper_ms": k1[key]["wrapper_ms"],
-            "layers_us": k1[key]["layers_us"],
-            "shapes": "no_dropout 32x1024 (ms: the layer kernels per call)",
+            "shapes": "no_dropout 32x1024"
+                      + (" layer 0" if key == "l0" else
+                         " (ms: the layer kernels per call)"),
             # the layer launches of its design over extract_embedding's run
-            "cli_launches": cli_k1["sm90" if key == "rule" else "sm80"],
+            "cli_launches": cli_k1[design],
             # ... and over the wave path's main run (phase 11)
-            "wave_launches": wave_routes["sm90" if key == "rule"
-                                         else "sm80"],
+            "wave_launches": wave_routes[design],
             # ... and over the recipe's two extraction stages (phase 13)
-            "recipe_launches": recipe_k1["sm90" if key == "rule"
-                                         else "sm80"],
+            "recipe_launches": recipe_k1[design],
             # ... and over run_sre16's two runs (phase 14: the waveform
             # route and the feature-ark route)
-            "sre16_launches": sre16_k1["sm90" if key == "rule"
-                                       else "sm80"],
+            "sre16_launches": sre16_k1[design],
             # ... and over the multi-rank run's utterance-sharded
             # extraction (phase 15 part 1, summed over its ranks)
-            "mc_launches": mc["k1"].get("sm90" if key == "rule" else "sm80",
-                                        0),
+            "mc_launches": mc["k1"].get(design, 0),
             # ... and over phase 16's multi-rank runs of cli.run (rank 0's
             # extraction)
-            "multicard_launches": multicard["k1"].get(
-                "sm90" if key == "rule" else "sm80", 0),
+            "multicard_launches": multicard["k1"].get(design, 0),
             # ... and over phase 17's bench runs (the headline's and the
             # sweep's extraction)
-            "bench_launches": bench["k1"]["sm90" if key == "rule"
-                                          else "sm80"],
-            **({"launches_by_design": main_routes} if key == "rule" else {}),
+            "bench_launches": bench["k1"][design],
+            **({"wrapper_ms": k1[key]["wrapper_ms"],
+                "layers_us": k1[key]["layers_us"],
+                "etdnn_ms": k1_etdnn[key]["ms"],
+                "etdnn_layers_us": k1_etdnn[key]["layers_us"]}
+               if key != "l0" else
+               {"conv1d_ms": k1["conv_ms"][0],
+                "alone_ms": k1_l0[23]["ms"], "alone_v4_ms": k1_l0[23]["v4_ms"],
+                "feat40": {"max_abs_err": errs[("no_dropout", 40, "layer", 0)],
+                           **k1_l0[40]}}),
+            **({"launches_by_design": main_routes,
+                "etdnn_last_layer": {
+                    "max_abs_err": errs[("etdnn", 23, "layer", 9)],
+                    "ms": (k1_etdnn["rule"]["layers_us"][9] / 1e3
+                           if k1_etdnn["rule"]["layers_us"] else None),
+                    "plain_ms": k1_etdnn["layer_plain_ms"][9],
+                    "bound_ms": k1_etdnn["layer_bounds"][9][0],
+                    "bound_by": k1_etdnn["layer_bounds"][9][1],
+                    "conv1d_ms": k1_etdnn["conv_ms"][9]},
+                "fold_ms": k1["fold_ms"]} if key == "rule" else {}),
+            **({"forced_launches": k1["forced_v4_launches"]
+                + k1_etdnn["forced_v4_launches"]} if key == "sm80" else {}),
         })
     # K2-K4: the main path makes one k=5 and one k=7 call of each per
     # step, so each time below is the mean of the two per-call times.

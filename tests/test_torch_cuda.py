@@ -177,8 +177,8 @@ def test_front_end_dither_repeats_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_wave_extractor_fused_matches_unfused(cuda_device):
-    """bf16 wave extraction with K1 (v4 on layer 0, v5 on layers 1-4)
-    against the unfused frame stack on the same weights."""
+    """bf16 wave extraction with K1 (the layer-0 kernel, v5 on layers 1-4,
+    no v4 launch) against the unfused frame stack on the same weights."""
     cfg, params, state = _model("no_dropout", cuda_device)
     rng = np.random.RandomState(5)
     utts = [(f"u{i}", _waves([n], seed=10 + i)[0][0].astype(np.float32))
@@ -195,8 +195,9 @@ def test_wave_extractor_fused_matches_unfused(cuda_device):
             device=cuda_device)
         out[fused] = ex.extract(utts)
         if fused:
-            calls = TK.route_launches["sm80"]
+            calls = TK.route_launches["l0_sm90"]
             assert calls > 0 and TK.route_launches["sm90"] == 4 * calls
+            assert TK.route_launches["sm80"] == 0
         else:
             assert TK.launches == 0
     assert set(out[True]) == set(out[False]) == {u for u, _ in utts
@@ -340,8 +341,9 @@ def test_conv_function_routes_every_call_to_sm90(cuda_device):
                                       ("prelu", 3, 333), ("etdnn", 3, 333),
                                       ("tiny", 2, 50)])
 def test_kernel_routes_layers_by_rule(name, b, t, cuda_device):
-    """K1 v5 ("sm90") on every layer layer_route gives it, K1 v4 on the
-    rest; and K1 v4 on every layer through design="sm80"."""
+    """Each layer on the design layer_route gives it (the layer-0 kernel,
+    then K1 v5; no v4), the same through design="sm90", and K1 v4 on every
+    layer through design="sm80"."""
     cfg, params, state = _model(name, cuda_device, seed=4)
     g = torch.Generator().manual_seed(5)
     x = torch.randn(b, t, cfg.feat_dim, generator=g).to(cuda_device)
@@ -349,20 +351,95 @@ def test_kernel_routes_layers_by_rule(name, b, t, cuda_device):
     mask[-1, t // 2:] = 0.0
     mask = mask.to(cuda_device)
     cins = (cfg.feat_dim,) + cfg.channels[:-1]
-    rule = [TK.layer_route(l, c, o)
-            for l, (c, o) in enumerate(zip(cins, cfg.channels))]
+    rule = [TK.layer_route(l, c, o, k) for l, (c, o, k) in
+            enumerate(zip(cins, cfg.channels, cfg.kernel_sizes))]
+    assert "sm80" not in rule
     want = TK.fused_frame_stack_reference(cfg, params, state, x, mask)
-    for design, designs in ((None, rule), ("sm80", ["sm80"] * len(rule))):
+    for design, designs in ((None, rule), ("sm90", rule),
+                            ("sm80", ["sm80"] * len(rule))):
         before = dict(TK.route_launches)
         got = TK.fused_frame_stack(cfg, params, state, x, mask,
                                    design=design)
         torch.cuda.synchronize()
         assert {n: TK.route_launches[n] - before[n] for n in before} == {
-            n: designs.count(n) for n in ("sm90", "sm80")}
+            n: designs.count(n) for n in ("l0_sm90", "sm90", "sm80")}
         assert got.dtype == torch.float32
         assert got.shape == want.shape
         assert float((got - want).abs().max() / want.abs().max()) <= BOUND
         assert not got[mask == 0].any()
+
+
+def _layer_err(got, want, mask):
+    """Normalised error of a layer's kernel output against its plain
+    version, over the columns the kernel writes; masked rows must be
+    exact zeros."""
+    want = want[..., :got.shape[-1]]
+    assert not got[mask == 0].any()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", [23, 40])
+def test_layer_zero_kernel_matches_plain(feat, cuda_device):
+    """The layer-0 kernel at 32x1024 against l0_reference (the packed
+    plain form), with masked tails that end inside a 128-frame tile."""
+    from dataclasses import replace
+    cfg = replace(tt.MODEL_ZOO["no_dropout"], feat_dim=feat)
+    params, state = tt.init_params(torch.Generator().manual_seed(6), cfg,
+                                   10, device=cuda_device)
+    folded = TK.fold_stack(cfg, params, state)
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(32, 1024, feat, generator=g).to(cuda_device)
+    lens = torch.randint(300, 1025, (32,), generator=g)
+    mask = (torch.arange(1024)[None] < lens[:, None]).float().to(cuda_device)
+    before = dict(TK.route_launches)
+    got = TK.fused_layer(cfg, folded, 0, x, mask)
+    torch.cuda.synchronize()
+    assert TK.route_launches["l0_sm90"] == before["l0_sm90"] + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (32, 1024, 512)
+    want = TK.l0_reference(cfg, folded, x, mask)
+    assert _layer_err(got, want, mask) <= BOUND
+
+
+@pytest.mark.cuda
+def test_etdnn_padded_last_layer_matches_plain(cuda_device):
+    """etdnn's 512 -> 1500 layer on K1 v5 with W and the vectors padded to
+    1504 columns and an f32 output of 1500, at 32x1024."""
+    cfg, params, state = _model("etdnn", cuda_device, seed=8)
+    folded = TK.fold_stack(cfg, params, state)
+    assert folded.layers[9][0].shape == (1, 512, 1504)
+    g = torch.Generator().manual_seed(9)
+    h = torch.randn(32, 1024, 512, generator=g).to(cuda_device,
+                                                   torch.bfloat16)
+    mask = torch.ones(32, 1024)
+    mask[3, 700:] = 0.0
+    mask = mask.to(cuda_device)
+    before = dict(TK.route_launches)
+    got = TK.fused_layer(cfg, folded, 9, h, mask)
+    torch.cuda.synchronize()
+    assert TK.route_launches["sm90"] == before["sm90"] + 1
+    assert got.dtype == torch.float32 and got.shape == (32, 1024, 1500)
+    assert got.is_contiguous()
+    want = TK.layer_reference(cfg, folded, 9, h, mask)
+    assert _layer_err(got, want, mask) <= BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["no_dropout", "etdnn"])
+def test_default_route_launches_no_v4(name, cuda_device):
+    """fused_frame_stack's default route and a fold made once: one launch
+    of the layer-0 kernel and v5 on every later layer, none of K1 v4."""
+    cfg, params, state = _model(name, cuda_device, seed=10)
+    folded = TK.fold_stack(cfg, params, state)
+    x = torch.randn(4, 300, cfg.feat_dim, device=cuda_device)
+    mask = torch.ones(4, 300, device=cuda_device)
+    before = dict(TK.route_launches)
+    got = TK.fused_frame_stack(cfg, folded, None, x, mask)
+    torch.cuda.synchronize()
+    assert {n: TK.route_launches[n] - before[n] for n in before} == {
+        "l0_sm90": 1, "sm90": cfg.num_frame_layers - 1, "sm80": 0}
+    want = TK.fused_frame_stack_reference(cfg, params, state, x, mask)
+    assert float((got - want).abs().max() / want.abs().max()) <= BOUND
 
 
 @pytest.mark.cuda
@@ -772,7 +849,7 @@ def _sre16_tree(root, rng):
 def test_run_sre16_tiny_on_card_takes_sm90_designs(cuda_device, tmp_path):
     """``run_sre16.main`` at ``tiny`` width in bf16 on the card: training
     through K2-K4 (tiny's one wide layer: one call of each per step, all
-    "sm90"), extraction through K1 (v4 on layer 0, v5 on layers 1-4) in
+    "sm90"), extraction through K1 (the layer-0 kernel, v5 on layers 1-4) in
     the waveform route and, after ``--stage 7``, the feature-ark route;
     both variants scored per language."""
     import json
@@ -803,7 +880,7 @@ def test_run_sre16_tiny_on_card_takes_sm90_designs(cuda_device, tmp_path):
             assert r["num_trials"] == 32
             assert set(r["per_condition"]) == {"tgl", "yue"}
             assert np.isfinite(r["scores"]).all()
-        assert k1["sm90"] == 4 * k1["sm80"] > 0
+        assert k1["sm90"] == 4 * k1["l0_sm90"] > 0 and k1["sm80"] == 0
         if stage is None:
             with open(work / "exp" / "metrics.jsonl") as f:
                 steps = sum(int(r["minibatches"]) for r in map(json.loads, f)

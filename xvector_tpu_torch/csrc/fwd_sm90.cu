@@ -1,6 +1,6 @@
 // Forward of the SAME 1-D convolution for Hopper (wgmma, TMA, mbarriers,
 // warp specialisation, persistent grid), in two variants that share one
-// main loop:
+// main loop, and a third for K1's layer 0 that shares their consumers:
 //
 //   K2 v2, the bare forward (conv_fwd_sm90_launch), replaces
 //       xvector_tpu/ops/conv_bwd.py:114 _pallas_fwd (body _fwd_kernel):
@@ -11,6 +11,9 @@
 //       y = mask[b,t] * (act(y + bias) * scale + shift), rounded once to
 //       bf16, or kept f32 for the stack's last layer.  act is relu, lrelu
 //       with a scalar alpha, or prelu with a per-channel alpha.
+//   K1 layer 0 (tdnn_l0_sm90_launch), the same layer on the f32 features
+//       (B, T, F), any F: y[b,t] = mask[b,t] * (act(sum_j bf16(mask[b,s] *
+//       x[b,s]) W0[j] + bias) * scale + shift), s = t - left + j*d.
 //
 // x (B, T, Cin) and W (K, Cin, Cout) are bf16, left = (K-1)/2*d, and rows
 // outside [0, T) of each batch row are zeros.  Every product of a call is
@@ -59,10 +62,42 @@
 //   column vectors (2 KB a consumer) leave room for 4.
 //
 // Shapes: every channel count a multiple of 8 (TMA's 16-byte global
-// strides); ops/conv_bwd.py:route and ops/tdnn_kernel.py:layer_route send
-// the rest to conv_bwd.cu and tdnn_stack.cu.  Each launch function encodes
-// its tensor maps on the host and passes them as __grid_constant__
-// parameters.
+// strides); ops/conv_bwd.py:route sends the rest of K2's calls to
+// conv_bwd.cu, and K1's fold (ops/tdnn_kernel.py:fold_stack) zero-pads
+// its channel counts to multiples of 8, so every K1 layer after the first
+// runs here.  Each launch function encodes its tensor maps on the host and
+// passes them as __grid_constant__ parameters.
+//
+// The layer-0 kernel.  A 23-channel f32 row is 92 bytes, which no TMA map
+// takes (16-byte strides), and an f32 input is the wrong type for a bf16
+// operand map at any F; the layer is bound by its bf16 output (32 x 1024 x
+// 512: 33.5 of the 36.8 MB it moves; 3.9 us of operations against 11.0 us
+// of bytes on the H100).  So only A's source changes:
+// * A row tile is 128 frames of one utterance (one halo, where v5's 8 x 16
+//   tile would carry eight), by all of Cout.  Producer warps 9-11 copy its
+//   window (the 128 + (k-1)*d frames of features and mask it reads, a
+//   contiguous run of the flat input) into shared memory with 4-byte
+//   cp.async copies, all in flight at once and issued as soon as the last
+//   A tile is built (they overlap the wait for a free A tile), then build
+//   A's im2col rows from it: K =
+//   (tap, channel) = k * F zero-padded to a multiple of 64 (5 x 23 = 115
+//   -> 128; 5 x 40 = 200 -> 256), masked, rounded to bf16 and stored
+//   straight into the 128-byte-swizzled K-major layout wgmma reads (a lane
+//   owns a column; eight rows' loads go before their stores).  Two A tiles
+//   when they fit (the next row tile is built while the consumers run on
+//   this one), else one; "a_full"/"a_empty" mbarriers hand them over.  The
+//   block's first A tile, which no other work hides, is built by the eight
+//   consumer warps too (11 warps, behind named barrier 4).
+// * W0 is packed at fold time as (kpad, Cout) bf16 in (tap, channel) row
+//   order, and warp 8 streams its column tiles by TMA through a ring of
+//   16 KB stages (the 128 KB W0 of the recipe does not fit beside two A
+//   tiles and the staging; it stays in L2).
+// * Each A tile serves every Cout tile of its row tile; the consumers and
+//   the TMA store through swizzled staging are v5's (the output box is 128
+//   frames of one utterance).  The epilogue reads bias, scale, shift and
+//   alpha once per column pair (float2) from a copy every block keeps for
+//   all of Cout: v5's epilogue, which reads them from shared memory for
+//   every value, was the largest part of this kernel's first versions.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -108,6 +143,7 @@ struct Cfg {
 
 struct FwdParams {
   int B, T, cout, k, dil, left;
+  int out_cols;  // <= cout: the output's columns (W's may be zero-padded)
   int nt;        // ceil(T / TT)
   int n_tiles;   // ceil(Cout / BN)
   int tiles;     // ceil(B / BB) * nt * n_tiles
@@ -146,8 +182,8 @@ template <int E>
 __device__ __forceinline__ void stage_half(const float (&acc)[64], int half,
                                            int pass, unsigned char* out,
                                            const float* vec,
-                                           const float (&m)[2][2],
-                                           const FwdParams& p, int warp,
+                                           const float (&m)[2][2], int act,
+                                           float lrelu_alpha, int warp,
                                            int lane) {
   using C = Cfg<E>;
   constexpr int I_PER_PASS = 16 / C::PASSES;   // 8-column groups a pass
@@ -160,9 +196,8 @@ __device__ __forceinline__ void stage_half(const float (&acc)[64], int half,
       const int row = 64 * half + 16 * warp + lane / 4 + 8 * h;
       float y0 = acc[4 * i + 2 * h], y1 = acc[4 * i + 2 * h + 1];
       if constexpr (E != BARE) {
-        y0 = tdnn_epilogue(y0, vec, col, m[half][h], p.act, p.lrelu_alpha);
-        y1 = tdnn_epilogue(y1, vec, col + 1, m[half][h], p.act,
-                           p.lrelu_alpha);
+        y0 = tdnn_epilogue(y0, vec, col, m[half][h], act, lrelu_alpha);
+        y1 = tdnn_epilogue(y1, vec, col + 1, m[half][h], act, lrelu_alpha);
       }
       if constexpr (E == TDNN_F32) {
         // two [128 rows][32 f32] boxes; 16-byte chunks swizzled by row
@@ -330,15 +365,17 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (wtid == 0) bulk_wait_read<0>();
         named_bar_sync(bar_id, 128);
       }
-      stage_half<E>(acc0, 0, pass, out_smem, vec, m, p, warp, lane);
-      stage_half<E>(acc1, 1, pass, out_smem, vec, m, p, warp, lane);
+      stage_half<E>(acc0, 0, pass, out_smem, vec, m, p.act, p.lrelu_alpha,
+                    warp, lane);
+      stage_half<E>(acc1, 1, pass, out_smem, vec, m, p.act, p.lrelu_alpha,
+                    warp, lane);
       fence_proxy_async();
       named_bar_sync(bar_id, 128);
       if (wtid == 0) {
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           const int c0 = n0 + pass * 64 + q * C::BOX_COLS;
-          if (c0 < p.cout)
+          if (c0 < p.out_cols)
             tma_store_3d(&mo, out_base + q * OUT_BOX, c0, t0, b0);
         }
         bulk_commit();
@@ -365,10 +402,11 @@ int fwd_launch(const void* x, const void* w, void* y, int blocks, int cin,
                      CU_TENSOR_MAP_SWIZZLE_128B);
   if (rc == 0) {
     if (E == TDNN_F32)
-      rc = make_map_3d(&mo, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, y, p.cout,
-                       p.T, p.B, 32, TT, BB, CU_TENSOR_MAP_SWIZZLE_128B);
+      rc = make_map_3d(&mo, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, y,
+                       p.out_cols, p.T, p.B, 32, TT, BB,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
     else
-      rc = make_map_3d(&mo, bf, 2, y, p.cout, p.T, p.B, 64, TT, BB,
+      rc = make_map_3d(&mo, bf, 2, y, p.out_cols, p.T, p.B, 64, TT, BB,
                        CU_TENSOR_MAP_SWIZZLE_128B);
   }
   if (rc != 0) return rc;
@@ -387,9 +425,428 @@ FwdParams shape(int B, int T, int cout, int k, int dil) {
   p.B = B;
   p.T = T;
   p.cout = cout;
+  p.out_cols = cout;
   p.k = k;
   p.dil = dil;
   return p;
+}
+
+// ---------------------------------------------------------------------------
+// K1 layer 0 (tdnn_l0_sm90_kernel): the f32 features in, A built in shared
+// memory by producer warps
+// ---------------------------------------------------------------------------
+
+constexpr int L0_ROWS = 128;           // frames of one utterance per row tile
+constexpr int A_CHUNK = 128 * 128;     // 128 rows x 64 columns of K, bf16
+constexpr int W_STAGE = 2 * W_BOX;     // 64 rows of K x 128 Cout columns
+constexpr int BUILDERS = 96;           // warps 9-11 build A
+constexpr int WIN_BLOCK = 256;         // window floats come in blocks of 256
+constexpr int L0_SMEM = 232448;        // a block's shared memory on sm_90
+
+struct L0Params {
+  const float* x;       // (B, T, F) f32 features
+  const float* mask;    // (B, T)
+  const float* bias;    // (cout) f32, as the packed W0's columns
+  const float* scale;
+  const float* shift;
+  const float* alpha;   // prelu only
+  int B, T, F, K;       // K = k * F: the packed W0's real rows
+  int kpad;             // W0's rows: K rounded up to 64
+  int k, dil, left;
+  uint32_t fdiv;        // ceil(2^20 / F): c / F == (c * fdiv) >> 20 here
+  int cout, out_cols;
+  int nt;               // ceil(T / L0_ROWS)
+  int row_tiles;        // B * nt
+  int n_tiles;          // ceil(cout / BN)
+  int chunks;           // kpad / 64: W stages per tile
+  int win_rows;         // L0_ROWS + (k - 1) * dil frames a row tile reads
+  int x_blocks, m_blocks;  // window blocks: features, mask
+  int vec_cols;         // cout rounded up to BN: each resident vector's row
+  int n_abuf, stages;   // A tiles and W stages the shared memory holds
+  int act;
+  float lrelu_alpha;
+};
+
+// window[e] = src[start + e] for e < n, zero where start + e leaves
+// [0, total): the builders' coalesced copy of a row tile's frames, issued
+// as 4-byte cp.async copies (zero-filled outside), all in flight at once;
+// cp.async.wait_all completes it.
+__device__ __forceinline__ void fill_window(float* window, const float* src,
+                                            int start, int n, int total,
+                                            int tid) {
+  for (int e = tid; e < n; e += BUILDERS) {
+    const int g = start + e;
+    const bool ok = g >= 0 && g < total;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(window + e)),
+                 "l"(src + (ok ? g : 0)), "r"(ok ? 4 : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A for row tile (b, t0) from its window: xw holds the features of frames
+// s0 = t0 - left .. s0 + win_rows - 1 of the flat (B * T, F) array (rows of
+// other utterances, or zeros, where they leave [0, T)), mw their mask.
+// Row r, column c = j * F + ch of K is bf16(mask[b, s] * x[b, s, ch]) at
+// s = s0 + r + j * dil, zero outside [0, T) and for c >= K.  It is stored
+// as kpad / 64 chunks of 128 rows x 128 bytes, each 16-byte unit u of row r
+// at u ^ (r & 7): the layout a TMA load with 128-byte swizzle gives, which
+// wgmma reads K-major.  The nw building warps take items of 32 columns x
+// 16 rows in turn (this is warp bw); a lane keeps one column (for dil = 1
+// the warp reads 32 neighbouring window floats a row: no bank conflicts).
+__device__ __forceinline__ void build_a(unsigned char* a, const float* xw,
+                                        const float* mw, const L0Params& p,
+                                        int t0, int bw, int nw, int lane) {
+  const int col_groups = p.kpad / 32;
+  const int items = col_groups * (L0_ROWS / 16);
+  for (int g = bw; g < items; g += nw) {
+    const int c = (g % col_groups) * 32 + lane, r0 = (g / col_groups) * 16;
+    const bool col_ok = c < p.K;
+    const int cc = col_ok ? c : 0;   // a padding column reads column 0
+    const int j = static_cast<int>((static_cast<uint32_t>(cc) * p.fdiv) >> 20);
+    const int w0 = r0 + j * p.dil;                 // window row of row r0
+    const int s0 = t0 - p.left + w0;               // its frame
+    const float* xr = xw + w0 * p.F + (cc - j * p.F);
+    unsigned char* col = a + (c / 64) * A_CHUNK + r0 * 128 + (c % 8) * 2;
+    const int unit = (c % 64) / 8;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // eight rows' loads before their stores: in flight together
+      float v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int rr = 8 * h + q, s = s0 + rr;
+        v[q] = col_ok && s >= 0 && s < p.T ? xr[rr * p.F] * mw[w0 + rr]
+                                           : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q)   // row r0 + 8 h + q: r & 7 == q
+        *reinterpret_cast<__nv_bfloat16*>(col + (8 * h + q) * 128 +
+                                          ((unit ^ q) << 4)) =
+            __float2bfloat16_rn(v[q]);
+    }
+  }
+}
+
+// The layer-0 kernel's epilogue: stage_half's for both 64-row halves of a
+// consumer's tile, with each column pair's bias, scale, shift and slope
+// read once (as float2) from the block's resident vectors, vecs[q * vec_cols
+// + c], for the eight values of the pair.
+template <int E>
+__device__ __forceinline__ void stage_tile(const float (&acc0)[64],
+                                           const float (&acc1)[64], int pass,
+                                           unsigned char* out,
+                                           const float* vecs, int vec_cols,
+                                           int n0, const float (&m)[2][2],
+                                           int act, float lrelu_alpha,
+                                           int warp, int lane) {
+  using C = Cfg<E>;
+  constexpr int I_PER_PASS = 16 / C::PASSES;   // 8-column groups a pass
+#pragma unroll
+  for (int ii = 0; ii < I_PER_PASS; ++ii) {
+    const int i = pass * I_PER_PASS + ii;
+    const int col = 8 * i + 2 * (lane % 4);
+    const float* v = vecs + n0 + col;
+    const float2 bias = *reinterpret_cast<const float2*>(v);
+    const float2 scale = *reinterpret_cast<const float2*>(v + vec_cols);
+    const float2 shift = *reinterpret_cast<const float2*>(v + 2 * vec_cols);
+    const float2 slope =
+        act == PRELU ? *reinterpret_cast<const float2*>(v + 3 * vec_cols)
+                     : make_float2(lrelu_alpha, lrelu_alpha);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float(&acc)[64] = half ? acc1 : acc0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 64 * half + 16 * warp + lane / 4 + 8 * h;
+        float y[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float a = acc[4 * i + 2 * h + e] + (e ? bias.y : bias.x);
+          const float sl = e ? slope.y : slope.x;
+          const float r = act == RELU ? fmaxf(a, 0.0f)
+                                      : fmaxf(a, 0.0f) + sl * fminf(a, 0.0f);
+          y[e] = (r * (e ? scale.y : scale.x) + (e ? shift.y : shift.x)) *
+                 m[half][h];
+        }
+        if constexpr (E == TDNN_F32) {
+          const int lc = col - 64 * pass, cc = lc % 32;
+          const uint32_t off = (lc / 32) * OUT_BOX + row * 128 +
+                               (((cc / 4) ^ (row & 7)) * 16) + (cc % 4) * 4;
+          *reinterpret_cast<float2*>(out + off) = make_float2(y[0], y[1]);
+        } else {
+          const uint32_t off = (i / 8) * OUT_BOX + row * 128 +
+                               (((i % 8) ^ (row & 7)) * 16) + (lane % 4) * 4;
+          *reinterpret_cast<__nv_bfloat162*>(out + off) =
+              __floats2bfloat162_rn(y[0], y[1]);
+        }
+      }
+    }
+  }
+}
+
+template <int E>
+__global__ void __launch_bounds__(THREADS, 1)
+    tdnn_l0_sm90_kernel(const __grid_constant__ CUtensorMap mw,
+                        const __grid_constant__ CUtensorMap mo,
+                        const __grid_constant__ L0Params p) {
+  using C = Cfg<E>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const int a_tile = p.chunks * A_CHUNK;
+  const uint32_t ring = base + p.n_abuf * a_tile;
+  unsigned char* win = smem + p.n_abuf * a_tile + p.stages * W_STAGE;
+  float* win_x = reinterpret_cast<float*>(win);
+  float* win_m = win_x + p.x_blocks * WIN_BLOCK;
+  float* vecs = reinterpret_cast<float*>(
+      win + (p.x_blocks + p.m_blocks) * WIN_BLOCK * 4);
+  unsigned char* outs = reinterpret_cast<unsigned char*>(
+      vecs + 4 * p.vec_cols);
+  const uint32_t bars = smem_u32(outs) + 2 * OUT;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (p.stages + s); };
+  auto turn = [&](int w) { return bars + 8 * (2 * p.stages + w); };
+  // a_full(i): A tile i is built; a_empty(i): both consumers are done with
+  // it
+  auto a_full = [&](int i) { return bars + 8 * (2 * p.stages + 2 + i); };
+  auto a_empty = [&](int i) {
+    return bars + 8 * (2 * p.stages + 2 + p.n_abuf + i);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4);   // the four warps of the consuming group
+    }
+    mbar_init(turn(0), 1);
+    mbar_init(turn(1), 1);
+    for (int i = 0; i < p.n_abuf; ++i) {
+      mbar_init(a_full(i), BUILDERS);   // every builder thread
+      mbar_init(a_empty(i), 8);         // every consumer warp
+    }
+    mbar_fence_init();
+  }
+  const int tid_b = threadIdx.x - 256 - 32;   // builder thread, 0..95
+  auto fill = [&](int mt) {
+    const int s_lo = (mt / p.nt) * p.T + (mt % p.nt) * L0_ROWS - p.left;
+    fill_window(win_x, p.x, s_lo * p.F, p.win_rows * p.F, p.B * p.T * p.F,
+                tid_b);
+    fill_window(win_m, p.mask, s_lo, p.win_rows, p.B * p.T, tid_b);
+  };
+  if (threadIdx.x >= 256 + 32) fill(blockIdx.x);   // the first window
+  // bias, scale, shift and alpha for every column, once per block (zeros
+  // past cout; alpha zeros but for prelu)
+  for (int e = threadIdx.x; e < 4 * p.vec_cols; e += THREADS) {
+    const int q = e / p.vec_cols, c = e % p.vec_cols;
+    const float* src = q == 0 ? p.bias : q == 1 ? p.scale
+                     : q == 2 ? p.shift : p.alpha;
+    vecs[e] = c < p.cout && (q < 3 || p.act == PRELU) ? src[c] : 0.0f;
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producers: warp 8 streams W0 by TMA, warps 9-11 build A (with
+    // more registers than v5's producer keeps, for loads in flight) ----
+    setmaxnreg_dec<56>();
+    const int warp = (threadIdx.x - 256) / 32, lane = threadIdx.x % 32;
+    if (warp == 0) {
+      if (lane == 0) {
+        // every (row tile, Cout tile) of this block in order, W0's column
+        // tile in `chunks` stages of 64 rows
+        int it = 0;
+        for (int mt = blockIdx.x; mt < p.row_tiles; mt += gridDim.x)
+          for (int n = 0; n < p.n_tiles; ++n)
+            for (int c = 0; c < p.chunks; ++c, ++it) {
+              const int s = it % p.stages;
+              mbar_wait(empty(s), ((it / p.stages) & 1) ^ 1);
+              mbar_arrive_expect_tx(full(s), W_STAGE);
+              const uint32_t st = ring + s * W_STAGE;
+              tma_load_3d(&mw, full(s), st, n * BN, c * 64, 0);
+              tma_load_3d(&mw, full(s), st + W_BOX, n * BN + 64, c * 64, 0);
+            }
+      }
+    } else {
+      // A row tile's window (its frames and their mask) is copied in by
+      // cp.async as soon as the last one is free, so the copy overlaps the
+      // wait for an A tile; then A is built from it.  The block's first A
+      // tile, which nothing can overlap, is built by the consumer warps too
+      int i = 0;
+      for (int mt = blockIdx.x; mt < p.row_tiles; mt += gridDim.x, ++i) {
+        cp_async_wait_all();
+        const int buf = i % p.n_abuf;
+        if (i == 0) {
+          named_bar_sync(4, 256 + BUILDERS);   // the window is in
+          build_a(smem, win_x, win_m, p, (mt % p.nt) * L0_ROWS, 7 + warp,
+                  11, lane);
+          fence_proxy_async();
+          named_bar_sync(4, 256 + BUILDERS);   // A is built, the window free
+        } else {
+          named_bar_sync(3, BUILDERS);   // the window is in
+          mbar_wait(a_empty(buf), ((i / p.n_abuf) & 1) ^ 1);
+          build_a(smem + buf * a_tile, win_x, win_m, p,
+                  (mt % p.nt) * L0_ROWS, warp - 1, 3, lane);
+          fence_proxy_async();   // generic writes before wgmma's reads
+          named_bar_sync(3, BUILDERS);   // the window is free again
+        }
+        mbar_arrive(a_full(buf));
+        if (mt + gridDim.x < p.row_tiles) fill(mt + gridDim.x);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: v5's ping-pong over the block's (row tile, Cout tile)
+  // sequence q = i * n_tiles + n, WG w taking q = w, w + 2, ...; A stays
+  // in shared memory for all n_tiles Cout tiles of its row tile ----
+  setmaxnreg_inc<224>();
+  const int wtid = threadIdx.x % 128, lane = wtid % 32, warp = wtid / 32;
+  const uint32_t bar_id = 1 + wg;
+  unsigned char* out_smem = outs + wg * OUT;
+  const uint32_t out_base = smem_u32(out_smem);
+  // the block's first A tile, with the builders (warps 0-7 of 11)
+  named_bar_sync(4, 256 + BUILDERS);
+  build_a(smem, win_x, win_m, p, (blockIdx.x % p.nt) * L0_ROWS,
+          threadIdx.x / 32, 11, lane);
+  fence_proxy_async();
+  named_bar_sync(4, 256 + BUILDERS);
+  int turns = 0, i = 0;
+  for (int mt = blockIdx.x; mt < p.row_tiles; mt += gridDim.x, ++i) {
+    const int buf = i % p.n_abuf;
+    const int b = mt / p.nt, t0 = (mt % p.nt) * L0_ROWS;
+    const uint32_t a_base = base + buf * a_tile;
+    const int n_first = ((i * p.n_tiles) & 1) == wg ? 0 : 1;
+    // this thread's four rows of the tile: frames t0 + 64 half + 16 warp +
+    // lane / 4 + 8 h
+    float m[2][2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = t0 + 64 * half + 16 * warp + lane / 4 + 8 * h;
+        m[half][h] =
+            t < p.T ? p.mask[static_cast<size_t>(b) * p.T + t] : 0.0f;
+      }
+    mbar_wait(a_full(buf), (i / p.n_abuf) & 1);
+    for (int n = n_first; n < p.n_tiles; n += 2) {
+      const int n0 = n * BN;
+      int it = (i * p.n_tiles + n) * p.chunks;
+      mbar_wait(turn(wg), (turns & 1) ^ (wg == 0));
+      float acc0[64], acc1[64];
+#pragma unroll
+      for (int r = 0; r < 64; ++r) {
+        acc0[r] = 0.0f;
+        acc1[r] = 0.0f;
+      }
+      for (int step = 0; step < p.chunks; ++step, ++it) {
+        const int s = it % p.stages;
+        mbar_wait(full(s), (it / p.stages) & 1);
+        const uint32_t st = ring + s * W_STAGE;
+        const uint32_t at = a_base + step * A_CHUNK;
+        fence_regs(acc0);
+        fence_regs(acc1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t db = desc_sw128(st + kk * 2048, W_BOX, 1024);
+          wgmma_m64n128<0, 1>(acc0, desc_sw128(at + kk * 32, 16, 1024), db);
+          wgmma_m64n128<0, 1>(acc1, desc_sw128(at + 64 * 128 + kk * 32, 16,
+                                               1024), db);
+        }
+        wgmma_commit();
+        fence_regs(acc0);
+        fence_regs(acc1);
+        wgmma_wait<1>();
+        fence_regs(acc0);
+        fence_regs(acc1);
+        if (step > 0 && lane == 0) mbar_arrive(empty((it - 1) % p.stages));
+      }
+      if (wtid == 0) mbar_arrive(turn(wg ^ 1));
+      wgmma_wait<0>();
+      fence_regs(acc0);
+      fence_regs(acc1);
+      if (lane == 0) {
+        mbar_arrive(empty((it - 1) % p.stages));
+        if (n + 2 >= p.n_tiles) mbar_arrive(a_empty(buf));   // A's last use
+      }
+      ++turns;
+
+      // ---- epilogue: into swizzled shared memory, then TMA ----
+#pragma unroll
+      for (int pass = 0; pass < C::PASSES; ++pass) {
+        if (wtid == 0) bulk_wait_read<0>();   // our last store has read
+        named_bar_sync(bar_id, 128);
+        stage_tile<E>(acc0, acc1, pass, out_smem, vecs, p.vec_cols, n0, m,
+                      p.act, p.lrelu_alpha, warp, lane);
+        fence_proxy_async();
+        named_bar_sync(bar_id, 128);
+        if (wtid == 0) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int c0 = n0 + pass * 64 + q * C::BOX_COLS;
+            if (c0 < p.out_cols)
+              tma_store_3d(&mo, out_base + q * OUT_BOX, c0, t0, b);
+          }
+          bulk_commit();
+        }
+      }
+    }
+    // a row tile with none of this group's tiles: done with it at once
+    if (n_first >= p.n_tiles && lane == 0) mbar_arrive(a_empty(buf));
+  }
+  if (wtid == 0) bulk_wait<0>();
+}
+
+// Shared memory of the layer-0 kernel: A tiles, W stages, the window, the
+// resident vectors, the two consumers' staging, then the barriers.  Two A
+// tiles when they fit beside two W stages (k * F <= 128 at most: the
+// recipe's 5 x 23), else one; as many W stages as are left, up to 4.
+// Returns the bytes, or 0 when even one A tile and two stages do not fit
+// (ops/tdnn_kernel.py:l0_takes makes the same count).
+int l0_smem(L0Params* p) {
+  const int a_tile = p->chunks * A_CHUNK;
+  const int fixed = ALIGN + (p->x_blocks + p->m_blocks) * WIN_BLOCK * 4 +
+                    16 * p->vec_cols + 2 * OUT + 8 * 16;   // <= 14 barriers
+  const int avail = L0_SMEM - fixed;
+  p->n_abuf = 2 * a_tile + 2 * W_STAGE <= avail ? 2 : 1;
+  const int stages = (avail - p->n_abuf * a_tile) / W_STAGE;
+  p->stages = stages < 4 ? stages : 4;
+  if (p->stages < 2) return 0;
+  return fixed + p->n_abuf * a_tile + p->stages * W_STAGE;
+}
+
+template <int E>
+int l0_launch(const void* w0, void* out, int blocks, L0Params p,
+              cudaStream_t stream) {
+  static const int attr = static_cast<int>(cudaFuncSetAttribute(
+      tdnn_l0_sm90_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L0_SMEM));
+  if (attr != 0) return attr;
+  const int smem = l0_smem(&p);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mw, mo;
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // W0 (kpad, cout) as it lies, entered as v5 enters W[j] (MN-major)
+  int rc = make_map_3d(&mw, bf, 2, w0, p.cout, p.kpad, 1, 64, 64, 1,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc == 0) {
+    if (E == TDNN_F32)
+      rc = make_map_3d(&mo, f32, 4, out, p.out_cols, p.T, p.B, 32, L0_ROWS,
+                       1, CU_TENSOR_MAP_SWIZZLE_128B);
+    else
+      rc = make_map_3d(&mo, bf, 2, out, p.out_cols, p.T, p.B, 64, L0_ROWS, 1,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (rc != 0) return rc;
+  const int grid = blocks < p.row_tiles ? blocks : p.row_tiles;
+  tdnn_l0_sm90_kernel<E><<<grid, THREADS, smem, stream>>>(mw, mo, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -407,21 +864,26 @@ int conv_fwd_sm90_launch(const void* x, const void* w, void* y, int blocks,
                           static_cast<cudaStream_t>(stream));
 }
 
-// K1 v5, one eval TDNN layer: out (B, T, Cout), bf16 or, with out_f32 != 0,
-// f32, from x (B, T, Cin) bf16, w (K, Cin, Cout) bf16, the f32 (Cout)
-// vectors bias, scale, shift and (prelu only; may be null otherwise)
-// alpha, and the f32 (B, T) row mask.  act: 0 relu, 1 lrelu (slope
-// lrelu_alpha), 2 prelu.  Channel counts must be multiples of 8.  Returns
-// 0, a cudaError_t, or an sm90::ERR_* code.
+// K1 v5, one eval TDNN layer: out (B, T, out_cols), bf16 or, with
+// out_f32 != 0, f32, from x (B, T, Cin) bf16, w (K, Cin, Cout) bf16, the
+// f32 (Cout) vectors bias, scale, shift and (prelu only; may be null
+// otherwise) alpha, and the f32 (B, T) row mask.  act: 0 relu, 1 lrelu
+// (slope lrelu_alpha), 2 prelu.  Cin and Cout must be multiples of 8 (the
+// fold zero-pads W's columns and the vectors to one); out takes the first
+// out_cols <= Cout columns, and its rows must be multiples of 16 bytes
+// (etdnn's 1500 f32 columns: 6000 bytes).  Returns 0, a cudaError_t, or an
+// sm90::ERR_* code.
 int tdnn_layer_sm90_launch(const void* x, const void* mask, const void* w,
                            const void* bias, const void* scale,
                            const void* shift, const void* alpha, void* out,
                            int out_f32, int blocks, int B, int T, int cin,
-                           int cout, int k, int dil, int act,
+                           int cout, int out_cols, int k, int dil, int act,
                            float lrelu_alpha, void* stream) {
-  if (act < RELU || act > PRELU || (act == PRELU && alpha == nullptr))
+  if (act < RELU || act > PRELU || (act == PRELU && alpha == nullptr) ||
+      out_cols < 1 || out_cols > cout)
     return static_cast<int>(cudaErrorInvalidValue);
   FwdParams p = shape(B, T, cout, k, dil);
+  p.out_cols = out_cols;
   p.mask = static_cast<const float*>(mask);
   p.bias = static_cast<const float*>(bias);
   p.scale = static_cast<const float*>(scale);
@@ -432,6 +894,58 @@ int tdnn_layer_sm90_launch(const void* x, const void* mask, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_f32) return fwd_launch<TDNN_F32>(x, w, out, blocks, cin, p, s);
   return fwd_launch<TDNN_BF16>(x, w, out, blocks, cin, p, s);
+}
+
+// K1 layer 0 on Hopper: out (B, T, out_cols), bf16 or, with out_f32 != 0,
+// f32, from the f32 features x (B, T, F) and (B, T) mask, W0 packed as
+// (kpad, cout) bf16 in (tap, channel) row order (row j * F + ch is W[j][ch],
+// rows K = k * F .. kpad zero; kpad = K rounded up to 64), and the f32
+// (cout) vectors as tdnn_layer_sm90_launch takes them.  cout must be a
+// multiple of 8, out's rows multiples of 16 bytes, and A, the window and
+// two W stages must fit (l0_smem; k * F <= 320 at k = 5).  Returns 0, a
+// cudaError_t, or an sm90::ERR_* code.
+int tdnn_l0_sm90_launch(const void* x, const void* mask, const void* w0,
+                        const void* bias, const void* scale,
+                        const void* shift, const void* alpha, void* out,
+                        int out_f32, int blocks, int B, int T, int F,
+                        int kpad, int cout, int out_cols, int k, int dil,
+                        int act, float lrelu_alpha, void* stream) {
+  if (act < RELU || act > PRELU || (act == PRELU && alpha == nullptr) ||
+      out_cols < 1 || out_cols > cout || cout % 8 || F < 1 || k < 1 ||
+      dil < 1 || kpad % 64 || kpad < k * F || B < 1 || T < 1 ||
+      static_cast<int64_t>(B) * (T + (k - 1) * dil) * F >= (1ll << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  L0Params p = {};
+  p.x = static_cast<const float*>(x);
+  p.mask = static_cast<const float*>(mask);
+  p.bias = static_cast<const float*>(bias);
+  p.scale = static_cast<const float*>(scale);
+  p.shift = static_cast<const float*>(shift);
+  p.alpha = static_cast<const float*>(alpha);
+  p.B = B;
+  p.T = T;
+  p.F = F;
+  p.K = k * F;
+  p.kpad = kpad;
+  p.k = k;
+  p.dil = dil;
+  p.left = (k - 1) / 2 * dil;
+  p.fdiv = ((1u << 20) + F - 1) / F;
+  p.cout = cout;
+  p.out_cols = out_cols;
+  p.nt = (T + L0_ROWS - 1) / L0_ROWS;
+  p.row_tiles = B * p.nt;
+  p.n_tiles = (cout + BN - 1) / BN;
+  p.chunks = kpad / 64;
+  p.win_rows = L0_ROWS + (k - 1) * dil;
+  p.x_blocks = (p.win_rows * F + WIN_BLOCK - 1) / WIN_BLOCK;
+  p.m_blocks = (p.win_rows + WIN_BLOCK - 1) / WIN_BLOCK;
+  p.vec_cols = (cout + BN - 1) / BN * BN;
+  p.act = act;
+  p.lrelu_alpha = lrelu_alpha;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_f32) return l0_launch<TDNN_F32>(w0, out, blocks, p, s);
+  return l0_launch<TDNN_BF16>(w0, out, blocks, p, s);
 }
 
 }  // extern "C"

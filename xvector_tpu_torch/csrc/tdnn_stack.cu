@@ -1,9 +1,11 @@
 // Eval-mode TDNN frame stack, one layer per launch, for Hopper (sm_90a):
-// K1 v4, the "sm80" design of ops/tdnn_kernel.py:layer_route.  It serves
-// layer 0 of every stack (f32 features, feat_dim 23 or 40) and any layer
-// with a channel count off 8 (etdnn's 1500); every other layer runs K1 v5
-// (fwd_sm90.cu: wgmma, TMA, the forward K2 v2 shares).  design="sm80"
-// forces this kernel on every layer.
+// K1 v4, the "sm80" design of ops/tdnn_kernel.py:layer_route.  No layer of
+// a model-zoo stack takes it by the rule: layer 0 runs the Hopper layer-0
+// kernel (fwd_sm90.cu, tdnn_l0_sm90_kernel) and every later layer K1 v5
+// (fwd_sm90.cu: wgmma, TMA, the forward K2 v2 shares).  It serves layer 0
+// only where that kernel cannot hold the layer in shared memory
+// (ops/tdnn_kernel.py:l0_takes: k * F beyond ~320), and every layer under
+// design="sm80", which the chip smoke times against the Hopper designs.
 //
 // Replaces the TPU kernel xvector_tpu/ops/tdnn_kernel.py:_layer_kernel /
 // _fused_call (K1), which runs the whole 5-layer stack in one Pallas call
@@ -80,8 +82,9 @@ struct LayerArgs {
   const float* scale;   // (Cout)
   const float* shift;   // (Cout)
   const float* alpha;   // (Cout), prelu only
-  void* out;            // (B, T, Cout), bf16 or f32 (last layer)
+  void* out;            // (B, T, out_cols), bf16 or f32 (last layer)
   int B, T, Cin, Cout, K, dil, act;
+  int out_cols;         // <= Cout: the columns written (W's may be padded)
   float lrelu_alpha;
 };
 
@@ -246,13 +249,13 @@ tdnn_layer_kernel(LayerArgs a) {
   // ---- epilogue from registers: bias, activation, BN affine, mask.
   // Thread holds rows g and g+8 of each tile, 2 adjacent channels each.
   Tout* out = static_cast<Tout*>(a.out);
-  const bool pair_out = (a.Cout % 2) == 0;
+  const bool pair_out = (a.out_cols % 2) == 0;
   const int g = lane / 4, c2 = (lane % 4) * 2;
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
     const int co = n0 + wn * 32 + ni * 8 + c2;
-    if (co >= a.Cout) continue;
-    const bool two = co + 1 < a.Cout;
+    if (co >= a.out_cols) continue;
+    const bool two = co + 1 < a.out_cols;
     float bias[2], scale[2], shift[2], alpha[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -277,7 +280,7 @@ tdnn_layer_kernel(LayerArgs a) {
                             : fmaxf(v, 0.0f) + alpha[e] * fminf(v, 0.0f);
           y[e] = (v * scale[e] + shift[e]) * m;
         }
-        Tout* dst = out + (row0 + t) * a.Cout + co;
+        Tout* dst = out + (row0 + t) * a.out_cols + co;
         if (pair_out && two) {
           store2(dst, y);
         } else {
@@ -306,12 +309,16 @@ int launch(const LayerArgs& a, cudaStream_t stream) {
 extern "C" {
 
 // One TDNN layer.  x_f32 != 0: x is f32 (layer 0, masked here) else bf16.
-// out_f32 != 0: out is f32 (last layer) else bf16.  Returns a cudaError_t.
+// out_f32 != 0: out is f32 (last layer) else bf16; out is (B, T, out_cols)
+// and takes the first out_cols <= Cout columns.  Returns a cudaError_t.
 int tdnn_layer_launch(const void* x, int x_f32, const void* mask,
                       const void* w, const void* bias, const void* scale,
                       const void* shift, const void* alpha, void* out,
-                      int out_f32, int B, int T, int Cin, int Cout, int K,
-                      int dil, int act, float lrelu_alpha, void* stream) {
+                      int out_f32, int B, int T, int Cin, int Cout,
+                      int out_cols, int K, int dil, int act,
+                      float lrelu_alpha, void* stream) {
+  if (out_cols < 1 || out_cols > Cout)
+    return static_cast<int>(cudaErrorInvalidValue);
   LayerArgs a;
   a.x = x;
   a.mask = static_cast<const float*>(mask);
@@ -325,6 +332,7 @@ int tdnn_layer_launch(const void* x, int x_f32, const void* mask,
   a.T = T;
   a.Cin = Cin;
   a.Cout = Cout;
+  a.out_cols = out_cols;
   a.K = K;
   a.dil = dil;
   a.act = act;

@@ -56,14 +56,18 @@ class ExtractorConfig:
     use_fused: bool = False
 
 
-def _xvector(model_cfg, params, state, x, mask, compute_dtype, fused):
+def _xvector(model_cfg, params, state, x, mask, compute_dtype, fused,
+             folded=None):
     """(B, T, F) features + (B, T) mask → (B, E) f32 x-vectors: the frame
     stack through K1 (``fused``: stats pooling and the embedding after it
-    in ``compute_dtype`` operands) or through ``tdnn.extract_xvector``."""
+    in ``compute_dtype`` operands; ``folded``, the parameters'
+    ``tdnn_kernel.fold_stack``, or None to fold them here) or through
+    ``tdnn.extract_xvector``."""
     if not fused:
         return tdnn.extract_xvector(model_cfg, params, state, x, mask=mask,
                                     compute_dtype=compute_dtype)
-    h = tdnn_kernel.fused_frame_stack(model_cfg, params, state, x, mask)
+    h = tdnn_kernel.fused_frame_stack(
+        model_cfg, params if folded is None else folded, state, x, mask)
     pooled = tdnn.stats_pooling(h, mask.to(torch.float32)[..., None])
     e0 = params["embed"][0]
     f32 = torch.float32
@@ -85,6 +89,11 @@ def preprocess(feats: np.ndarray, cmvn_window: int = 300,
 
 
 class XvectorExtractor:
+    """Feature → x-vector extraction on ``device``.  The weights are moved
+    there once (tensors already on it are the caller's, not copies) and,
+    with ``use_fused``, folded for K1 once, here: weights changed after
+    construction are not seen by the fused stack."""
+
     def __init__(self, model_cfg: tdnn.TdnnConfig, params, state,
                  cfg: ExtractorConfig = ExtractorConfig(), device="cuda"):
         self.device = resolve_device(device)
@@ -96,11 +105,14 @@ class XvectorExtractor:
         if cfg.use_fused and not tdnn_kernel.supports(model_cfg):
             raise ValueError("fused extraction unsupported for "
                              f"topology {model_cfg.name}")
+        self.folded = (tdnn_kernel.fold_stack(model_cfg, self.params,
+                                              self.state)
+                       if cfg.use_fused else None)
 
     def _forward(self, x, mask):
         """(B, T, F) features + (B, T) mask on the device → (B, E) f32."""
         return _xvector(self.model_cfg, self.params, self.state, x, mask,
-                        self._cd, self.cfg.use_fused)
+                        self._cd, self.cfg.use_fused, self.folded)
 
     def _run(self, x: np.ndarray, mask: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
@@ -253,13 +265,20 @@ def make_wave_to_xvector(model_cfg: tdnn.TdnnConfig,
     apply the recipe's min-chunk policy (``run_xvector.sh:75``); rows with
     no voiced frame come back NaN, so an all-silence utterance cannot pass
     for an embedding.  Utterances longer than ``max_chunk`` frames are
-    the caller's to split, as :class:`WaveExtractor` does."""
+    the caller's to split, as :class:`WaveExtractor` does.  With
+    ``use_fused`` the weights are folded for K1 once per (params, state)
+    pair ``fn`` is given: change them in place and the fold is stale."""
     dev = resolve_device(device)
     if use_fused and not tdnn_kernel.supports(model_cfg):
         raise ValueError("fused extraction unsupported for topology "
                          f"{model_cfg.name}")
+    fold = {"params": None, "state": None, "stack": None}
 
     def fn(params, state, waves, n_samples, generator=None):
+        if use_fused and (fold["params"] is not params
+                          or fold["state"] is not state):
+            fold.update(params=params, state=state, stack=(
+                tdnn_kernel.fold_stack(model_cfg, params, state)))
         with torch.inference_mode():
             feats, fmask = F.mfcc_batch(torch.as_tensor(waves).to(dev),
                                         torch.as_tensor(n_samples).to(dev),
@@ -268,7 +287,7 @@ def make_wave_to_xvector(model_cfg: tdnn.TdnnConfig,
             feats = F.sliding_cmvn_batch(feats, fmask, window=cmvn_window)
             feats, vmask = F.compact_voiced(feats, vad)
             xv = _xvector(model_cfg, params, state, feats, vmask,
-                          compute_dtype, use_fused)
+                          compute_dtype, use_fused, fold["stack"])
             voiced = vmask.sum(1).to(torch.int32)
             return torch.where((voiced > 0)[:, None], xv, torch.nan), voiced
 

@@ -185,17 +185,22 @@ def _lib_sm90() -> ctypes.CDLL:
 
 
 def _lib_fwd() -> ctypes.CDLL:
-    """``csrc/fwd_sm90.cu``: K2 v2 and K1 v5's layers."""
+    """``csrc/fwd_sm90.cu``: K2 v2, K1 v5's layers and K1's layer 0."""
     lib = _build.load(SOURCE_FWD)
     if lib.conv_fwd_sm90_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.conv_fwd_sm90_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
         lib.conv_fwd_sm90_launch.restype = ctypes.c_int
         lib.tdnn_layer_sm90_launch.argtypes = [
-            p, p, p, p, p, p, p, p, i,             # x .. out, out_f32
-            i, i, i, i, i, i, i, i, ctypes.c_float,  # blocks B T Cin Cout K
-            p]                                     # dil act alpha, stream
+            p, p, p, p, p, p, p, p, i,  # x .. out, out_f32
+            i, i, i, i, i, i,           # blocks B T Cin Cout out_cols
+            i, i, i, ctypes.c_float, p]  # K dil act, lrelu alpha, stream
         lib.tdnn_layer_sm90_launch.restype = ctypes.c_int
+        lib.tdnn_l0_sm90_launch.argtypes = [
+            p, p, p, p, p, p, p, p, i,  # x .. out, out_f32
+            i, i, i, i, i, i, i,        # blocks B T F kpad Cout out_cols
+            i, i, i, ctypes.c_float, p]  # K dil act, lrelu alpha, stream
+        lib.tdnn_l0_sm90_launch.restype = ctypes.c_int
     return lib
 
 
