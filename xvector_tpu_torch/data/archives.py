@@ -1,12 +1,13 @@
 """Training archives (XTA) and their prefetching loader.
 
 Own copy of the file format and loader of ``xvector_tpu/data/archives.py``
-(numpy and threading only): an XTA file holds minibatches as contiguous
-float16 (B, Tpad, F) tensors, already padded to their bucketed length,
-with int32 labels, indexed by a JSON footer (byte offsets, shape, true
-length).  Writes are atomic (tmp + rename).  :class:`PrefetchLoader` is
-the reference's bounded-queue prefetch thread (``examples_io.py:181-255``)
-with its disk-wait accounting.
+(numpy and threading; torch only through the loader's spans): an XTA file
+holds minibatches as contiguous float16 (B, Tpad, F) tensors, already
+padded to their bucketed length, with int32 labels, indexed by a JSON
+footer (byte offsets, shape, true length).  Writes are atomic (tmp +
+rename).  :class:`PrefetchLoader` is the reference's bounded-queue
+prefetch thread (``examples_io.py:181-255``); the consumer's waits on
+it are the span ``xv.data.wait``.
 
 The plan functions turn an :class:`~.allocator.ArchivePlan` into
 minibatches: :func:`materialize_archive` (from a ``fetch(utt)`` callable)
@@ -24,11 +25,11 @@ import os
 import queue
 import struct
 import threading
-import time
 from typing import Callable, Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.profiling import span
 from .allocator import ArchivePlan
 
 __all__ = ["write_archive", "ArchiveReader", "PrefetchLoader",
@@ -237,19 +238,19 @@ def materialize_archive_native(plan: ArchivePlan, path: str,
 
 
 class PrefetchLoader:
-    """Background-thread minibatch prefetcher with wait-time accounting.
+    """Background-thread minibatch prefetcher.
 
     Yields (feats float16 (B, Tpad, F), labels (B,), true_len int), the
     bytes as stored: the host→device upload is half the f32 size and the
-    frame mask is built on the device from ``true_len``.  ``disk_wait``
-    keeps the reference's load-balance signal (models.py:276-282).
+    frame mask is built on the device from ``true_len``.  Under a profiler
+    each wait of the consumer on the queue is the span ``xv.data.wait``,
+    the reference's load-balance signal (models.py:276-282).
     """
 
     def __init__(self, reader: ArchiveReader, queue_size: int = 16):
         self._reader = reader
         self._q: queue.Queue = queue.Queue(maxsize=queue_size)
         self._err: list = []
-        self.disk_wait = 0.0
         self._thread = threading.Thread(target=self._produce, daemon=True)
         self._thread.start()
 
@@ -264,9 +265,8 @@ class PrefetchLoader:
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray, int]]:
         while True:
-            t0 = time.monotonic()
-            item = self._q.get()
-            self.disk_wait += time.monotonic() - t0
+            with span("xv.data.wait"):
+                item = self._q.get()
             if item is None:
                 if self._err:
                     raise self._err[0]

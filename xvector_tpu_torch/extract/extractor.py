@@ -9,7 +9,8 @@ Counterpart of ``xvector_tpu/extract/extractor.py``:
   protocol); chunks are padded to a small set of bucket lengths and
   batched ``batch_size`` at a time per bucket, with a frame mask for the
   padding; :func:`preprocess` applies sliding CMVN and voiced-frame
-  selection;
+  selection; ``XvectorExtractor.counters`` keeps running totals of the
+  utterances, chunks, batches and real and padded frames it ran;
 * wave input (:class:`WaveExtractor`, :func:`make_wave_to_xvector`):
   padded batches of waveforms go through MFCC, energy VAD, sliding CMVN,
   voiced-frame compaction, the frame stack (K1 with ``use_fused``),
@@ -17,6 +18,10 @@ Counterpart of ``xvector_tpu/extract/extractor.py``:
   :func:`read_wav_scp` streams a Kaldi wav.scp.
 
 Output is ready for :class:`xvector_tpu_torch.io.kaldi_ark.ArkWriter`.
+Under a profiler the feature path's layers are ``xv.extract.*`` spans:
+``preprocess`` (its ``cmvn``, ``download`` and ``select_voiced``), ``pack``
+and ``run`` (its ``upload``, ``frame_stack``, ``pooling``, ``embedding``
+and ``download``).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from ..models import tdnn
 from ..models.convert import tree_map
 from ..ops import features as F
 from ..ops import tdnn_kernel
+from ..utils.profiling import span, tracing
 
 __all__ = ["ExtractorConfig", "XvectorExtractor", "preprocess",
            "speaker_means", "make_wave_to_xvector", "WaveExtractor",
@@ -64,15 +70,19 @@ def _xvector(model_cfg, params, state, x, mask, compute_dtype, fused,
     ``tdnn_kernel.fold_stack``, or None to fold them here) or through
     ``tdnn.extract_xvector``."""
     if not fused:
-        return tdnn.extract_xvector(model_cfg, params, state, x, mask=mask,
-                                    compute_dtype=compute_dtype)
-    h = tdnn_kernel.fused_frame_stack(
-        model_cfg, params if folded is None else folded, state, x, mask)
-    pooled = tdnn.stats_pooling(h, mask.to(torch.float32)[..., None])
-    e0 = params["embed"][0]
-    f32 = torch.float32
-    return (pooled.to(compute_dtype).to(f32)
-            @ e0["w"].to(compute_dtype).to(f32)) + e0["b"]
+        with span("xv.extract.frame_stack"):
+            return tdnn.extract_xvector(model_cfg, params, state, x,
+                                        mask=mask, compute_dtype=compute_dtype)
+    with span("xv.extract.frame_stack"):
+        h = tdnn_kernel.fused_frame_stack(
+            model_cfg, params if folded is None else folded, state, x, mask)
+    with span("xv.extract.pooling"):
+        pooled = tdnn.stats_pooling(h, mask.to(torch.float32)[..., None])
+    with span("xv.extract.embedding"):
+        e0 = params["embed"][0]
+        f32 = torch.float32
+        return (pooled.to(compute_dtype).to(f32)
+                @ e0["w"].to(compute_dtype).to(f32)) + e0["b"]
 
 
 def preprocess(feats: np.ndarray, cmvn_window: int = 300,
@@ -81,18 +91,27 @@ def preprocess(feats: np.ndarray, cmvn_window: int = 300,
     """Sliding CMVN (on ``device``) then voiced-frame selection (the
     reference's ``apply-cmvn-sliding … | select-voiced-frames`` pipe)."""
     dev = resolve_device(device)
-    x = torch.from_numpy(np.array(feats)).to(dev)   # arks give read-only views
-    out = F.sliding_cmvn(x, window=cmvn_window).cpu().numpy()
-    if vad is not None:
-        out = F.select_voiced_frames(out, vad)
-    return out
+    with span("xv.extract.preprocess"):
+        with span("xv.extract.cmvn"):
+            # arks give read-only views
+            x = torch.from_numpy(np.array(feats)).to(dev)
+            out = F.sliding_cmvn(x, window=cmvn_window)
+        with span("xv.extract.download"):
+            out = out.cpu().numpy()
+        if vad is not None:
+            with span("xv.extract.select_voiced"):
+                out = F.select_voiced_frames(out, vad)
+        return out
 
 
 class XvectorExtractor:
     """Feature → x-vector extraction on ``device``.  The weights are moved
     there once (tensors already on it are the caller's, not copies) and,
     with ``use_fused``, folded for K1 once, here: weights changed after
-    construction are not seen by the fused stack."""
+    construction are not seen by the fused stack.  ``counters`` holds
+    running totals over every call: ``utterances`` (those with a chunk),
+    ``chunks``, ``batches``, ``frames_real`` (chunk frames) and
+    ``frames_padded`` (the batches' rows times their bucket length)."""
 
     def __init__(self, model_cfg: tdnn.TdnnConfig, params, state,
                  cfg: ExtractorConfig = ExtractorConfig(), device="cuda"):
@@ -108,6 +127,8 @@ class XvectorExtractor:
         self.folded = (tdnn_kernel.fold_stack(model_cfg, self.params,
                                               self.state)
                        if cfg.use_fused else None)
+        self.counters = {"utterances": 0, "chunks": 0, "batches": 0,
+                         "frames_real": 0, "frames_padded": 0}
 
     def _forward(self, x, mask):
         """(B, T, F) features + (B, T) mask on the device → (B, E) f32."""
@@ -115,10 +136,14 @@ class XvectorExtractor:
                         self._cd, self.cfg.use_fused, self.folded)
 
     def _run(self, x: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        with torch.inference_mode():
-            out = self._forward(torch.from_numpy(x).to(self.device),
-                                torch.from_numpy(mask).to(self.device))
-            return out.to(torch.float32).cpu().numpy()
+        args = f"bucket={x.shape[1]} rows={x.shape[0]}" if tracing() else None
+        with span("xv.extract.run", args), torch.inference_mode():
+            with span("xv.extract.upload"):
+                xd = torch.from_numpy(x).to(self.device)
+                md = torch.from_numpy(mask).to(self.device)
+            out = self._forward(xd, md)
+            with span("xv.extract.download"):
+                return out.to(torch.float32).cpu().numpy()
 
     # -- chunking ---------------------------------------------------------
     def _chunks(self, num_rows: int) -> List[Tuple[int, int]]:
@@ -147,6 +172,7 @@ class XvectorExtractor:
         completion order.  Batches chunks across utterances per length
         bucket; utterances shorter than min_chunk are skipped."""
         feat_dim = self.model_cfg.feat_dim
+        counts = self.counters
         pend_sum: Dict[str, np.ndarray] = {}
         pend_weight: Dict[str, float] = {}
         pend_left: Dict[str, int] = {}
@@ -162,13 +188,16 @@ class XvectorExtractor:
                 pend_left[utt] -= 1
 
         def pack(b: int, items):
-            n = len(items)
-            x = np.zeros((n, b, feat_dim), np.float32)
-            mask = np.zeros((n, b), np.float32)
-            for i, (_, rows, ln) in enumerate(items):
-                x[i, :ln] = rows
-                mask[i, :ln] = 1.0
-            return x, mask
+            with span("xv.extract.pack"):
+                n = len(items)
+                x = np.zeros((n, b, feat_dim), np.float32)
+                mask = np.zeros((n, b), np.float32)
+                for i, (_, rows, ln) in enumerate(items):
+                    x[i, :ln] = rows
+                    mask[i, :ln] = 1.0
+                counts["batches"] += 1
+                counts["frames_padded"] += n * b
+                return x, mask
 
         def dispatch_staged(b: int):
             for x, mask, items in staged.pop(b, []):
@@ -199,6 +228,9 @@ class XvectorExtractor:
             chunks = self._chunks(feats.shape[0])
             if not chunks:
                 continue
+            counts["utterances"] += 1
+            counts["chunks"] += len(chunks)
+            counts["frames_real"] += sum(ln for _, ln in chunks)
             order.append(utt)
             pend_left[utt] = len(chunks)
             for off, ln in chunks:

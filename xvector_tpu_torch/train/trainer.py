@@ -69,7 +69,7 @@ from ..models.convert import tree_leaves, tree_map
 from ..models.heads import (accuracy, am_softmax, local_sharded_softmax_ce,
                             softmax_ce)
 from ..parallel import mesh as meshlib
-from ..utils.profiling import StepTimer, device_forensics
+from ..utils.profiling import StepTimer, device_forensics, span
 from . import checkpoints, combine, schedules
 from .preemption import PreemptedError
 from .optim import make_optimizer, set_learning_rate
@@ -141,36 +141,39 @@ def _loss_fn(model_cfg: tdnn.TdnnConfig, cfg: TrainConfig, params, state,
     """Loss of this rank's rows (the global batch's on every rank under a
     mesh), with (new BN state or batch moments, CE, accuracy).
     ``n_rows`` counts the real rows of the global batch."""
-    if dense:
-        # the caller certified every row valid and every frame real
-        mask, weight = None, None
-    else:
-        mask, weight = _device_mask(batch.shape, t_len, n_rows, batch.device,
-                                    _first_row(mesh, batch.shape[0]))
     group = None if mesh is None else mesh.data_group
     sharded = cfg.head == "sharded_softmax"
     am = cfg.head == "am_softmax"
-    out = tdnn.apply(model_cfg, params, state, batch, mask=mask,
-                     row_weight=weight, train=True,
-                     dropout_keep=dropout_keep, generator=generator,
-                     compute_dtype=_compute_dtype(cfg),
-                     bn_stats_out=bn_stats_out, skip_head=am or sharded,
-                     fused_conv_bwd=cfg.fused_conv_bwd, group=group,
-                     head_group=(mesh.model_group if sharded and mesh
-                                 else None))
-    if sharded:
-        ce, acc = local_sharded_softmax_ce(
-            out["hidden"], params["output"]["w"], params["output"]["b"],
-            labels, mesh, row_weight=weight, data_group=group)
-    else:
-        if am:
-            ce, logits = am_softmax(out["hidden"], params["output"]["w"],
-                                    labels, cfg.am_scale, cfg.am_margin,
-                                    row_weight=weight, group=group)
+    with span("xv.train.forward"):
+        if dense:
+            # the caller certified every row valid and every frame real
+            mask, weight = None, None
         else:
-            logits = out["logits"]
-            ce = softmax_ce(logits, labels, weight, group)
-        acc = accuracy(logits, labels, weight, group)
+            mask, weight = _device_mask(batch.shape, t_len, n_rows,
+                                        batch.device,
+                                        _first_row(mesh, batch.shape[0]))
+        out = tdnn.apply(model_cfg, params, state, batch, mask=mask,
+                         row_weight=weight, train=True,
+                         dropout_keep=dropout_keep, generator=generator,
+                         compute_dtype=_compute_dtype(cfg),
+                         bn_stats_out=bn_stats_out, skip_head=am or sharded,
+                         fused_conv_bwd=cfg.fused_conv_bwd, group=group,
+                         head_group=(mesh.model_group if sharded and mesh
+                                     else None))
+    with span("xv.train.head"):
+        if sharded:
+            ce, acc = local_sharded_softmax_ce(
+                out["hidden"], params["output"]["w"], params["output"]["b"],
+                labels, mesh, row_weight=weight, data_group=group)
+        else:
+            if am:
+                ce, logits = am_softmax(out["hidden"], params["output"]["w"],
+                                        labels, cfg.am_scale, cfg.am_margin,
+                                        row_weight=weight, group=group)
+            else:
+                logits = out["logits"]
+                ce = softmax_ce(logits, labels, weight, group)
+            acc = accuracy(logits, labels, weight, group)
     l2 = out["l2_loss"]
     if group is not None and mesh.data_index:
         # every data rank holds the whole L2 term; the gradient sum over
@@ -190,26 +193,28 @@ def _grad_and_update(model_cfg, cfg, optimizer, params, state, batch,
         model_cfg, cfg, params, state, batch, labels, t_len, n_rows,
         dropout_keep, generator, bn_stats_out, dense, mesh)
     leaves = tree_leaves(params)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)]
-    if mesh is not None:
-        grads = meshlib.all_reduce_flat(grads, mesh.data_group)
-    if cfg.max_param_change > 0.0:
-        gnorm = torch.sqrt(sum(g.square().sum() for g in grads))
-        scale = torch.clamp(cfg.max_param_change / (gnorm * lr + 1e-20),
-                            max=1.0)
-        grads = [g * scale for g in grads]
-    for p, g in zip(leaves, grads):
-        p.grad = g
-    set_learning_rate(optimizer, lr)
-    optimizer.step()
-    for p in leaves:
-        p.grad = None
-    if cfg.apply_shrink:
-        with torch.no_grad():
-            for p in leaves:
-                p.mul_(shrink)
+    with span("xv.train.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        if mesh is not None:
+            grads = meshlib.all_reduce_flat(grads, mesh.data_group)
+    with span("xv.train.optimizer"):
+        if cfg.max_param_change > 0.0:
+            gnorm = torch.sqrt(sum(g.square().sum() for g in grads))
+            scale = torch.clamp(cfg.max_param_change / (gnorm * lr + 1e-20),
+                                max=1.0)
+            grads = [g * scale for g in grads]
+        for p, g in zip(leaves, grads):
+            p.grad = g
+        set_learning_rate(optimizer, lr)
+        optimizer.step()
+        for p in leaves:
+            p.grad = None
+        if cfg.apply_shrink:
+            with torch.no_grad():
+                for p in leaves:
+                    p.mul_(shrink)
     return tree_map(torch.Tensor.detach, state), loss.detach(), acc.detach()
 
 
@@ -251,12 +256,12 @@ def make_block_train_step(model_cfg: tdnn.TdnnConfig, cfg: TrainConfig,
             moments.append(m)
             losses.append(loss)
             accs.append(acc)
-        stacked = {part: [{key: torch.stack([m[part][l][key]
-                                             for m in moments])
-                           for key in layer}
-                          for l, layer in enumerate(state[part])]
-                   for part in state}
-        with torch.no_grad():
+        with span("xv.train.bn_fold"), torch.no_grad():
+            stacked = {part: [{key: torch.stack([m[part][l][key]
+                                                 for m in moments])
+                               for key in layer}
+                              for l, layer in enumerate(state[part])]
+                       for part in state}
             new_state = tdnn.fold_bn_state(state, stacked,
                                            model_cfg.bn_decay)
         return new_state, {"loss": torch.stack(losses).mean(),
@@ -421,89 +426,94 @@ class Trainer:
         it from the checkpoint.  Returns mean loss and accuracy, the count
         of minibatches, of dense and masked blocks and of single steps, and
         the timer summary."""
-        cfg = self.cfg
-        seed = cfg.random_seed + 1000 * it
-        if attempt or self.mesh.data > 1:
-            # a retry draws other dropout masks, and each data rank draws
-            # its own rows' (the ranks of one data index, the same); the
-            # CPU generator keeps only a seed's low 32 bits, so they are
-            # hashed in
-            seed = int(np.random.SeedSequence(
-                [seed, attempt] + ([self.mesh.data_index]
-                                   if self.mesh.data > 1 else []))
-                .generate_state(1)[0])
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        keep = 1.0 - dropout
-        pending: List[Tuple[Dict[str, torch.Tensor], int]] = []
-        counts = {"dense_blocks": 0, "masked_blocks": 0, "single_steps": 0}
-        buckets: Dict[Tuple[int, ...], List] = {}
-        timer = StepTimer()
-        uploader = cf.ThreadPoolExecutor(max_workers=1)
-        inflight: List[cf.Future] = []
+        with span("xv.train.iteration"):
+            cfg = self.cfg
+            seed = cfg.random_seed + 1000 * it
+            if attempt or self.mesh.data > 1:
+                # a retry draws other dropout masks, and each data rank draws
+                # its own rows' (the ranks of one data index, the same); the
+                # CPU generator keeps only a seed's low 32 bits, so they are
+                # hashed in
+                seed = int(np.random.SeedSequence(
+                    [seed, attempt] + ([self.mesh.data_index]
+                                       if self.mesh.data > 1 else []))
+                    .generate_state(1)[0])
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            keep = 1.0 - dropout
+            pending: List[Tuple[Dict[str, torch.Tensor], int]] = []
+            counts = {"dense_blocks": 0, "masked_blocks": 0, "single_steps": 0}
+            buckets: Dict[Tuple[int, ...], List] = {}
+            timer = StepTimer("xv.train")
+            uploader = cf.ThreadPoolExecutor(max_workers=1)
+            inflight: List[cf.Future] = []
 
-        def stack(items):
-            xs = np.stack([i[0] for i in items])
-            ys = np.stack([i[1] for i in items])
-            tl = [int(i[2]) for i in items]
-            nr = [int(i[3]) for i in items]
-            dense = (self._block_dense_fn is not None
-                     and all(t == xs.shape[2] for t in tl)
-                     and all(n == xs.shape[1] * self.mesh.data for n in nr))
-            return self._pinned(xs), self._pinned(ys), tl, nr, dense
+            def stack(items):
+                xs = np.stack([i[0] for i in items])
+                ys = np.stack([i[1] for i in items])
+                tl = [int(i[2]) for i in items]
+                nr = [int(i[3]) for i in items]
+                dense = (self._block_dense_fn is not None
+                         and all(t == xs.shape[2] for t in tl)
+                         and all(n == xs.shape[1] * self.mesh.data
+                                 for n in nr))
+                return self._pinned(xs), self._pinned(ys), tl, nr, dense
 
-        def dispatch(fut):
-            with timer("upload_wait"):
-                xs, ys, tl, nr, dense = fut.result()
-            with timer("dispatch"):
-                xs = xs.to(self.device, non_blocking=True)
-                ys = ys.to(self.device, non_blocking=True)
-                fn = self._block_dense_fn if dense else self._block_fn
-                self.state, m = fn(self.params, self.optimizer, self.state,
-                                   xs, ys, tl, nr, lr, keep, shrink, gen)
-            counts["dense_blocks" if dense else "masked_blocks"] += 1
-            pending.append((m, len(tl)))
-
-        # one rank polls at every minibatch; several agree at each block
-        # boundary, so that the poll adds no collective per minibatch
-        several = self.mesh.size > 1
-        try:
-            for i, item in enumerate(batches):
-                if ((not several or (i and i % cfg.block_size == 0))
-                        and self._stop_agreed(stop_check)):
-                    raise PreemptedError(f"iteration {it}")
-                feats, labels, true_len = item[:3]
-                key = feats.shape
-                buckets.setdefault(key, []).append(
-                    (feats, labels, true_len, self._global_rows(item)))
-                if len(buckets[key]) >= cfg.block_size:
-                    inflight.append(uploader.submit(stack, buckets.pop(key)))
-                    while len(inflight) > 2:
-                        dispatch(inflight.pop(0))
-            while inflight:
-                dispatch(inflight.pop(0))
-        finally:
-            uploader.shutdown(wait=False, cancel_futures=True)
-        for key in sorted(buckets):            # ragged leftovers
-            for feats, labels, true_len, n_rows in buckets[key]:
+            def dispatch(fut):
+                with timer("upload_wait"):
+                    xs, ys, tl, nr, dense = fut.result()
                 with timer("dispatch"):
-                    self.state, m = self._step_fn(
-                        self.params, self.optimizer, self.state,
-                        self._upload(feats), self._upload(labels),
-                        int(true_len), n_rows, lr, keep, shrink, gen)
-                counts["single_steps"] += 1
-                pending.append((m, 1))
+                    with span("xv.train.upload"):
+                        xs = xs.to(self.device, non_blocking=True)
+                        ys = ys.to(self.device, non_blocking=True)
+                    fn = self._block_dense_fn if dense else self._block_fn
+                    self.state, m = fn(self.params, self.optimizer, self.state,
+                                       xs, ys, tl, nr, lr, keep, shrink, gen)
+                counts["dense_blocks" if dense else "masked_blocks"] += 1
+                pending.append((m, len(tl)))
 
-        with timer("device_drain"):
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        tot_loss = tot_acc = n = 0.0
-        for m, k in pending:        # read after the device queue drains
-            tot_loss += float(m["loss"]) * k
-            tot_acc += float(m["accuracy"]) * k
-            n += k
-        return {"loss": tot_loss / max(n, 1),
-                "accuracy": tot_acc / max(n, 1),
-                "minibatches": n, **counts, **timer.summary()}
+            # one rank polls at every minibatch; several agree at each block
+            # boundary, so that the poll adds no collective per minibatch
+            several = self.mesh.size > 1
+            try:
+                for i, item in enumerate(batches):
+                    if ((not several or (i and i % cfg.block_size == 0))
+                            and self._stop_agreed(stop_check)):
+                        raise PreemptedError(f"iteration {it}")
+                    feats, labels, true_len = item[:3]
+                    key = feats.shape
+                    buckets.setdefault(key, []).append(
+                        (feats, labels, true_len, self._global_rows(item)))
+                    if len(buckets[key]) >= cfg.block_size:
+                        inflight.append(
+                            uploader.submit(stack, buckets.pop(key)))
+                        while len(inflight) > 2:
+                            dispatch(inflight.pop(0))
+                while inflight:
+                    dispatch(inflight.pop(0))
+            finally:
+                uploader.shutdown(wait=False, cancel_futures=True)
+            for key in sorted(buckets):            # ragged leftovers
+                for feats, labels, true_len, n_rows in buckets[key]:
+                    with timer("dispatch"):
+                        with span("xv.train.upload"):
+                            x, y = self._upload(feats), self._upload(labels)
+                        self.state, m = self._step_fn(
+                            self.params, self.optimizer, self.state, x, y,
+                            int(true_len), n_rows, lr, keep, shrink, gen)
+                    counts["single_steps"] += 1
+                    pending.append((m, 1))
+
+            with timer("device_drain"):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            tot_loss = tot_acc = n = 0.0
+            for m, k in pending:        # read after the device queue drains
+                tot_loss += float(m["loss"]) * k
+                tot_acc += float(m["accuracy"]) * k
+                n += k
+            return {"loss": tot_loss / max(n, 1),
+                    "accuracy": tot_acc / max(n, 1),
+                    "minibatches": n, **counts, **timer.summary()}
 
     def evaluate(self, batches: Iterable, params=None,
                  state=None) -> Dict[str, float]:

@@ -1,9 +1,13 @@
-"""Step-timing instrumentation.
+"""Step-timing and tracing instrumentation.
 
 Counterpart of ``xvector_tpu/utils/profiling.py``:
 
+* :func:`span` — a named range (``xv.<layer>.<part>``) in a running
+  ``torch.profiler`` trace, and nothing when no profiler records the
+  thread (:func:`tracing`);
 * :class:`StepTimer` — wall-clock per named phase, summarised the way the
-  reference logs its disk-wait vs GPU-wait split (``models.py:240-289``);
+  reference logs its disk-wait vs GPU-wait split (``models.py:240-289``),
+  each phase also a span;
 * :func:`device_forensics` — a post-mortem snapshot of the card for the
   trainer's retry and failure records.
 """
@@ -13,23 +17,42 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import torch
 
-__all__ = ["StepTimer", "device_forensics"]
+__all__ = ["span", "tracing", "StepTimer", "device_forensics"]
+
+_NULL = contextlib.nullcontext()
+
+
+def tracing() -> bool:
+    """Whether a profiler records this thread (``torch.autograd
+    ._profiler_enabled()``): a caller builds a span's ``args`` only then."""
+    return torch.autograd._profiler_enabled()
+
+
+def span(name: str, args: Optional[str] = None):
+    """``torch.profiler.record_function(name, args)`` while a profiler
+    records this thread, else one shared null context.  The ranges are
+    kineto events of the profile they belong to, on its clock."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name, args)
+    return _NULL
 
 
 class StepTimer:
-    """Accumulate wall-clock per named phase.
+    """Accumulate wall-clock per named phase; each phase is also the span
+    ``<namespace>.<phase>``.
 
-    >>> t = StepTimer()
-    >>> with t("disk"): ...
-    >>> with t("device"): ...
-    >>> t.summary()   # {'disk': ..., 'device': ..., 'disk_pct': ...}
+    >>> t = StepTimer("xv.train")
+    >>> with t("upload_wait"): ...
+    >>> with t("dispatch"): ...
+    >>> t.summary()   # {'upload_wait': ..., 'upload_wait_mean_ms': ...}
     """
 
-    def __init__(self):
+    def __init__(self, namespace: str):
+        self.namespace = namespace
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
 
@@ -37,17 +60,17 @@ class StepTimer:
     def __call__(self, phase: str) -> Iterator[None]:
         t0 = time.monotonic()
         try:
-            yield
+            with span(f"{self.namespace}.{phase}"):
+                yield
         finally:
             self.totals[phase] += time.monotonic() - t0
             self.counts[phase] += 1
 
     def summary(self) -> Dict[str, float]:
+        """Seconds of each phase and its mean milliseconds per call."""
         out: Dict[str, float] = {}
-        total = sum(self.totals.values()) or 1.0
         for phase, secs in self.totals.items():
             out[phase] = secs
-            out[f"{phase}_pct"] = 100.0 * secs / total
             out[f"{phase}_mean_ms"] = 1e3 * secs / max(self.counts[phase], 1)
         return out
 
