@@ -27,10 +27,18 @@ Phases; any failure raises and the exit code is non-zero:
    (``design="sm80"``, ``csrc/tdnn_stack.cu``) at 32x1024; then layer 0
    alone at 32x1024 (F = 23 and 40) and etdnn's 512 -> 1500 layer alone
    against their plain versions; max error normalised by max|plain| must
-   stay within 1e-2 and masked frames must be exact zeros;
+   stay within 1e-2 and masked frames must be exact zeros; then sliding
+   CMVN's kernel (``csrc/cmvn_sm90.cu``) against its plain version (the
+   f64 prefix-sum chain, on the same card tensor) at 8,526x23 and
+   30,000x23, window 300, centred, within 1e-5 * max(1, max|feats|), and
+   timed: the kernel by the profiler, the wrapper's host cost a call, the
+   plain chain by CUDA events, beside the byte bound (2*T*D*4 bytes);
 4. the serving path at full width (``no_dropout``, 7,185 classes, random
    weights from ``--seed``): Kaldi feature and VAD arks written and read
-   back, ``preprocess`` (sliding CMVN + VAD), ``XvectorExtractor`` in bf16
+   back, ``preprocess`` (sliding CMVN + VAD: one CMVN kernel launch a
+   call, counted from zero over the calls, and each call's frames held to
+   ``preprocess`` on the CPU within the CMVN bound), ``XvectorExtractor``
+   in bf16
    with the fused kernel (the main path, with the launch counts zeroed just
    before it and read just after: layer 0 on "l0_sm90", layers 1-4 on
    "sm90", none on "sm80") and without it, x-vectors compared
@@ -292,8 +300,9 @@ Phases; any failure raises and the exit code is non-zero:
    runs' stage walls.
 
 The line before the last is ``{"kernels": [...]}`` (K1 and K2-K4 in the
-main path's designs, and rows for the "sm80" designs with their main-path
-launch counts, each with its launches over the CLI phase as
+main path's designs, rows for the "sm80" designs with their main-path
+launch counts, and sliding CMVN's row, its launches over phase 4's
+``preprocess`` calls; each with its launches over the CLI phase as
 ``cli_launches``, over the recipe's stages (training for K2-K4, both
 extraction stages for K1) as ``recipe_launches``, over run_sre16's
 runs (training for K2-K4, both runs' extraction for K1) as
@@ -333,6 +342,10 @@ import torch
 import torch.nn.functional as F
 
 KERNEL_BOUND = 1e-2        # max |kernel - plain| / max |plain|
+# sliding CMVN, kernel vs plain: the same f32 steps, only the f64 window
+# sums taken in another order, so at most a neighbouring f32 (of max|x|)
+CMVN_BOUND = 1e-5          # max |kernel - plain| / max(1, max |feats|)
+CMVN_SHAPES = ((8526, 23), (30000, 23))   # extraction's mean, 300 s
 COSINE_BOUND = 0.999       # fused vs unfused x-vectors, both bf16
 F32_BOUND = 1e-3           # card f32 vs CPU f32 x-vectors, normalised
 ATT_BOUND = 5e-2           # attention model: card vs CPU x-vectors in bf16
@@ -531,6 +544,59 @@ def phase_kernel_checks(tt, TK, dev, seed):
     return results
 
 
+def cmvn_bound(x) -> float:
+    return CMVN_BOUND * max(1.0, float(np.abs(np.asarray(x)).max()))
+
+
+def phase_cmvn(FE, dev, seed, tag, calls=20):
+    """Sliding CMVN's kernel against its plain version on the same card
+    tensor, window 300, centred, at each of ``CMVN_SHAPES``, then timed:
+    the kernel's profiled device time (median over ``calls`` launches
+    after one left out), the wrapper's host cost a call, the plain chain
+    (CUDA events) and the byte bound.  Returns the rows by (T, D)."""
+    from torch.profiler import ProfilerActivity, profile
+    rows = {}
+    for t, d in CMVN_SHAPES:
+        g = torch.Generator().manual_seed(seed + 17 * t + d)
+        x = (torch.randn(t, d, generator=g)
+             + 3.0 * torch.randn(d, generator=g)).to(dev)
+        before = FE.cmvn_launches
+        got = FE.sliding_cmvn(x, 300)
+        if FE.cmvn_launches != before + 1:
+            fail(f"CMVN {t}x{d}: the card call did not launch the kernel")
+        err = float((got - FE.sliding_cmvn_reference(x, 300)).abs().max())
+        lim = cmvn_bound(x.cpu())
+        print(f"CMVN kernel vs plain {t}x{d} window 300: max abs error "
+              f"{err:.3g} (bound {lim:.3g})")
+        if not err <= lim:
+            fail(f"CMVN {t}x{d}: the kernel disagrees with its plain version")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls + 1):
+                FE.sliding_cmvn(x, 300)
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "sliding_cmvn_kernel" in e.name),
+            key=lambda e: e.time_range.start)][-calls:]
+        if len(us) < calls:
+            fail(f"CMVN {t}x{d}: the profiler saw {len(us)} of {calls + 1} "
+                 "kernel launches")
+        ms = statistics.median(us) / 1e3
+        call_ms = host_ms(lambda: FE.sliding_cmvn(x, 300), calls=200)
+        plain_ms = cuda_ms(lambda: FE.sliding_cmvn_reference(x, 300))
+        bound_ms, by = bound(0, 2 * t * d * 4)
+        print(f"timing CMVN kernel {t}x{d} window 300: {ms * 1e3:.2f} us "
+              f"(profiled), {call_ms * 1e3:.2f} us a call on the host; "
+              f"plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.3f} "
+              f"us by {by} ({bound_ms / ms:.1%}) [{tag}]")
+        rows[(t, d)] = {"ms": ms, "call_host_ms": call_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": by, "max_abs_err": err}
+    return rows
+
+
 def write_arks(kio, tmp, seed):
     """~64 utterances of 200-3000 frames, one of 12,000 (two chunks) and
     one of 20 (dropped), as a binary feature ark and a VAD ark."""
@@ -559,15 +625,36 @@ def run_extractor(TE, cfg, params, state, utts, fused, dev):
     return out, time.perf_counter() - t0
 
 
-def phase_serving(tt, TE, TK, kio, dev, seed, tag):
+def phase_serving(tt, TE, TK, FE, kio, dev, seed, tag):
     cfg, params, state = model(tt, "no_dropout", seed, 7185, dev)
     with tempfile.TemporaryDirectory() as tmp:
         feats_ark, vad_ark = write_arks(kio, tmp, seed)
         vads = dict(kio.read_vec_flt_ark(vad_ark))
+        # preprocess, the main path's CMVN: its count zeroed just before,
+        # read just after
+        FE.cmvn_launches = 0
         t0 = time.perf_counter()
         utts = [(k, TE.preprocess(m, vad=vads[k], device=dev))
                 for k, m in kio.read_mat_ark(feats_ark)]
         pre_s = time.perf_counter() - t0
+        cmvn_launches = FE.cmvn_launches
+        print(f"serving: CMVN kernel launches over {len(utts)} preprocess "
+              f"calls on the card: {cmvn_launches}")
+        if cmvn_launches != len(utts):
+            fail("serving: preprocess on the card left the CMVN kernel")
+        mats = dict(kio.read_mat_ark(feats_ark))
+        pre_err = 0.0
+        for k, f in utts:
+            want = TE.preprocess(mats[k], vad=vads[k], device="cpu")
+            if f.shape != want.shape:
+                fail(f"serving: preprocess kept {f.shape[0]} frames of {k} "
+                     f"on the card, {want.shape[0]} on the CPU")
+            pre_err = max(pre_err, float(np.abs(f - want).max())
+                          / cmvn_bound(mats[k]))
+        print(f"serving: preprocess card vs CPU max abs error "
+              f"{pre_err:.3g} of the CMVN bound")
+        if not pre_err <= 1.0:
+            fail("serving: preprocess on the card disagrees with the CPU")
         kept = {k for k, f in utts if f.shape[0] >= 25}
         frames = sum(f.shape[0] for k, f in utts if k in kept)
         print(f"serving: {len(utts)} utterances read, {len(kept)} kept, "
@@ -655,7 +742,7 @@ def phase_serving(tt, TE, TK, kio, dev, seed, tag):
               f"audio-s/s (median {med:.4f} s, quartiles {q1:.4f}-{q3:.4f} "
               f"s over {len(times[fused])} runs; {len(kept)} utterances, "
               f"{frames} frames) [{tag}]")
-    return main_launches, main_routes
+    return main_launches, main_routes, cmvn_launches
 
 
 def phase_batch_timing(tt, TE, dev, seed, tag):
@@ -2118,8 +2205,11 @@ def phase_wave(tt, TE, CB, TK, kio, dev, seed, tag, tmp):
     w = torch.from_numpy(by_utt[long_utt]).to(dev)
     feats = TF.mfcc(w, ex.mfcc_cfg)
     vad = TF.energy_vad(feats, ex.vad_cfg)
+    before = TF.cmvn_launches
     pre = TE.preprocess(feats.cpu().numpy(), vad=vad.cpu().numpy(),
                         device=dev)
+    if TF.cmvn_launches != before + 1:
+        fail("wave: preprocess on the card left the CMVN kernel")
     chain = TE.XvectorExtractor(cfg, params, state, TE.ExtractorConfig(
         max_chunk=wcfg.max_chunk, batch_size=max(1, WAVE_BATCH // 4),
         compute_dtype="bfloat16", use_fused=True), device=dev).extract(
@@ -4974,6 +5064,7 @@ def main(argv=None) -> int:
     from xvector_tpu_torch.ops import _build
     from xvector_tpu_torch.runtime import native
     from xvector_tpu_torch.ops import conv_bwd as CB
+    from xvector_tpu_torch.ops import features as FE
     from xvector_tpu_torch.ops import tdnn_kernel as TK
     from xvector_tpu_torch.train import schedules
     from xvector_tpu_torch.train import trainer as TR
@@ -5004,11 +5095,13 @@ def main(argv=None) -> int:
             if any(w in line for w in ("registers", "spill", "warning")):
                 print(f"build {src}: {line.strip()}")
 
-    # 3. K1 against its plain version
+    # 3. K1 against its plain version, then sliding CMVN's kernel
     errs = phase_kernel_checks(tt, TK, dev, args.seed)
+    cmvn = phase_cmvn(FE, dev, args.seed, tag)
 
     # 4. the serving path
-    _, main_routes = phase_serving(tt, TE, TK, kio, dev, args.seed, tag)
+    _, main_routes, cmvn_launches = phase_serving(tt, TE, TK, FE, kio, dev,
+                                                  args.seed, tag)
 
     # 5. the serving metric at 32x1024, then K1 at the same shape
     phase_batch_timing(tt, TE, dev, args.seed, tag)
@@ -5190,6 +5283,21 @@ def main(argv=None) -> int:
             "bound_by": per_k[0]["bound_by"],
             "shapes": "64x304, 512->512, k=5 and k=7 (mean per call)",
         })
+    # sliding CMVN: one launch a preprocess call on the card; replaces no
+    # TPU kernel (the JAX package takes its window sums with
+    # lax.reduce_window)
+    kernels.append({
+        "name": "sliding_cmvn",
+        "route": "cuda",
+        "source": "xvector_tpu_torch/csrc/cmvn_sm90.cu",
+        "replaces": None,
+        "launches": cmvn_launches,
+        **cmvn[CMVN_SHAPES[0]],
+        # no single PyTorch call computes it
+        "library_ms": None,
+        "shapes": "8526x23, window 300, centred",
+        "t30000": cmvn[CMVN_SHAPES[1]],
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,9 +15,13 @@ Bounds, as max |kernel − plain| / max |plain|: 1e-2 for K1, K2 and K4,
 whose outputs are bf16 (both round the same operands to bf16 and
 accumulate in f32; a different summation order can flip the bf16 rounding
 of an output or an intermediate, nothing more); 1e-3 for K3's f32 output,
-where only the order of the f32 sums differs.  The wave front end on the
-card is held to the CPU at the CPU suite's bounds (features rtol 1e-4,
-atol 2e-3; golden fixtures rtol 2e-4, atol 1e-3; augmentation 1e-4).  The
+where only the order of the f32 sums differs.  Sliding CMVN's kernel is
+held to its plain version at 1e-5 · max(1, max |feats|): both take the
+same f32 steps, and only an f64 window sum taken in another order can
+round to a neighbouring f32 (``tests/test_torch_cmvn.py``).  The wave
+front end on the card is held to the CPU at the CPU suite's bounds
+(features rtol 1e-4, atol 2e-3; golden fixtures rtol 2e-4, atol 1e-3;
+augmentation 1e-4).  The
 PLDA back end on the card is held to the CPU and the host f64 back end at
 ``tests/test_backend.py``'s bounds, with TF32 off and on."""
 
@@ -173,6 +177,112 @@ def test_front_end_dither_repeats_on_card(cuda_device):
 
     a, b, c = run(3), run(3), run(4)
     assert torch.equal(a, b) and bool((a != c).any())
+
+
+CMVN_T = [1, 2, 24, 25, 299, 300, 301, 1000, 8526, 30000]
+
+
+def _cmvn_bound(x):
+    return 1e-5 * max(1.0, float(np.abs(np.asarray(x, np.float64)).max()))
+
+
+def _cmvn_feats(t, d, seed):
+    """Unit noise plus a per-column offset, which CMVN takes out."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(t, d, generator=g) + 3.0 * torch.randn(d, generator=g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [300, 3])
+@pytest.mark.parametrize("norm_vars", [False, True])
+@pytest.mark.parametrize("center", [True, False])
+@pytest.mark.parametrize("d", [23, 80])
+@pytest.mark.parametrize("t", CMVN_T)
+def test_sliding_cmvn_kernel_matches_plain(t, d, center, norm_vars, window,
+                                           cuda_device):
+    x = _cmvn_feats(t, d, 131 * t + d)
+    want = FE.sliding_cmvn_reference(x, window, center, norm_vars)
+    before = FE.cmvn_launches
+    got = FE.sliding_cmvn(x.to(cuda_device), window, center, norm_vars)
+    torch.cuda.synchronize()
+    assert FE.cmvn_launches == before + 1
+    assert got.is_cuda and got.dtype == torch.float32 and got.shape == x.shape
+    err = float((got.cpu() - want).abs().max())
+    assert err <= _cmvn_bound(x), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float64", "transposed", "strided"])
+def test_sliding_cmvn_kernel_takes_other_dtypes_and_layouts(kind,
+                                                            cuda_device):
+    x = _cmvn_feats(777, 23, 5)
+    if kind == "float64":
+        x = x.double()
+        card = x.to(cuda_device)
+    elif kind == "transposed":
+        card = x.t().contiguous().to(cuda_device).t()
+    else:
+        card = torch.stack([x, -x], -1).to(cuda_device)[..., 0]
+    assert torch.equal(card.cpu(), x)
+    assert kind == "float64" or not card.is_contiguous()
+    before = FE.cmvn_launches
+    got = FE.sliding_cmvn(card, 300)
+    torch.cuda.synchronize()
+    assert FE.cmvn_launches == before + 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    err = float((got.cpu() - FE.sliding_cmvn_reference(x, 300)).abs().max())
+    assert err <= _cmvn_bound(x), err
+
+
+@pytest.mark.cuda
+def test_preprocess_on_card_takes_the_kernel_once_a_call(cuda_device):
+    rng = np.random.default_rng(3)
+    before = FE.cmvn_launches
+    sizes = (40, 1000, 8526)
+    for n in sizes:
+        feats = (rng.standard_normal((n, 23))
+                 + 3.0 * rng.standard_normal(23)).astype(np.float32)
+        vad = (rng.random(n) > 0.3).astype(np.float32)
+        got = TE.preprocess(feats, vad=vad, device=cuda_device)
+        want = TE.preprocess(feats, vad=vad, device="cpu")
+        assert got.shape == want.shape == (int((vad > 0.5).sum()), 23)
+        assert np.abs(got - want).max() <= _cmvn_bound(feats)
+    assert FE.cmvn_launches == before + len(sizes)
+
+
+@pytest.mark.cuda
+def test_sliding_cmvn_kernel_rejects_what_it_does_not_take(cuda_device,
+                                                           monkeypatch):
+    x = torch.randn(10, 23, device=cuda_device)
+    before = FE.cmvn_launches
+    with pytest.raises(ValueError, match="T, D"):
+        FE.sliding_cmvn(x[None], 300)
+    with pytest.raises(ValueError, match=">= 1"):
+        FE.sliding_cmvn(x, 0)
+    invalid = 1   # cudaErrorInvalidValue
+    # a window whose rows overflow a block's shared memory (232,448 bytes
+    # on sm_90: 58,112 f32 rows): the C function refuses it, the wrapper
+    # raises
+    with pytest.raises(RuntimeError, match=f"cudaError {invalid}"):
+        FE.sliding_cmvn(torch.zeros(60000, 1, device=cuda_device), 60000)
+    # the C function refuses a window geometry off its terms, unlaunched
+    lib = FE._cmvn_lib()
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    for win, off in ((11, 5), (10, 10), (0, 0), (4, -1)):
+        assert lib.sliding_cmvn_launch(x.data_ptr(), out.data_ptr(), 10, 23,
+                                       win, off, 0, stream) == invalid
+    # a launch the C function reports failed raises and is not counted
+
+    class Refused:
+        @staticmethod
+        def sliding_cmvn_launch(*args):
+            return invalid
+
+    monkeypatch.setattr(FE, "_cmvn_lib", lambda: Refused)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        FE.sliding_cmvn(x, 300)
+    assert FE.cmvn_launches == before
 
 
 @pytest.mark.cuda

@@ -8,8 +8,11 @@ utterance (``compute-mfcc-feats | compute-vad-energy … apply-cmvn-sliding
 with Kaldi's numerics: povey window, pre-emphasis 0.97, snip-edges=false
 reflection framing, raw log-energy C0, orthonormal DCT-II, lifter 22.
 
-Every function works on the device of the tensors it is given.  The
-spectral products (the folded DFT, the mel bank, the DCT) run in float64,
+Every function works on the device of the tensors it is given.
+:func:`sliding_cmvn` launches one hand-written kernel on a CUDA tensor
+(``csrc/cmvn_sm90.cu``; :data:`cmvn_launches` counts them) and runs its
+plain PyTorch version, :func:`sliding_cmvn_reference`, on a CPU tensor.
+The spectral products (the folded DFT, the mel bank, the DCT) run in float64,
 where TF32 cannot reach them whatever ``torch.backends.cuda.matmul.
 allow_tf32`` says, and the cepstra come back as float32.  Dither draws
 from an explicit ``torch.Generator`` (the bits differ from JAX's).
@@ -17,6 +20,7 @@ from an explicit ``torch.Generator`` (the bits differ from JAX's).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from dataclasses import dataclass
@@ -26,12 +30,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import _build
+
 __all__ = ["MfccConfig", "VadConfig", "mfcc", "mfcc_batch", "num_frames",
            "energy_vad", "energy_vad_batch", "sliding_cmvn",
-           "sliding_cmvn_batch", "select_voiced_frames", "compact_voiced"]
+           "sliding_cmvn_reference", "sliding_cmvn_batch",
+           "select_voiced_frames", "compact_voiced", "cmvn_launches"]
 
 _F64 = torch.float64
 _EPS = float(np.finfo(np.float32).eps)
+
+CMVN_SOURCE = "cmvn_sm90.cu"
+
+# Sliding-CMVN kernel launches so far (one per sliding_cmvn call on a CUDA
+# tensor).
+cmvn_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -345,7 +358,11 @@ def energy_vad(feats: torch.Tensor, cfg: VadConfig = VadConfig()
 def _window_sums(v: torch.Tensor, win: int) -> torch.Tensor:
     """All size-``win`` window sums along axis 0, (T, D) → (T-win+1, D),
     from an f64 prefix sum (exact enough that the cumsum difference loses
-    nothing at f32 output precision)."""
+    nothing at f32 output precision).
+
+    The plain version's (:func:`sliding_cmvn_reference`): the CPU path, and
+    the yardstick the card tests hold the kernel to.  On the card the
+    kernel (``csrc/cmvn_sm90.cu``) sums each window directly in f64."""
     c = F.pad(torch.cumsum(v.to(_F64), dim=0), (0, 0, 1, 0))
     return c[win:] - c[:-win]
 
@@ -355,9 +372,26 @@ def sliding_cmvn(feats: torch.Tensor, window: int = 300, center: bool = True,
     """Subtract a sliding-window mean from each frame of (T, D) features
     (``apply-cmvn-sliding``).
 
-    Kaldi window placement: nominally centered on the frame, clamped so the
+    Kaldi window placement: nominally centered on the frame (trailing, the
+    window ending at the frame, when ``center`` is False), clamped so the
     window keeps ``min(T, window)`` frames at the edges — near the
-    boundaries the window slides rather than shrinks."""
+    boundaries the window slides rather than shrinks.
+
+    On a CUDA tensor one kernel computes it (``csrc/cmvn_sm90.cu``: f64
+    window sums, then the same f32 steps), or the call raises; it takes the
+    features as contiguous f32 and returns ``feats.dtype``.  On a CPU
+    tensor :func:`sliding_cmvn_reference` runs."""
+    if feats.is_cuda:
+        return _sliding_cmvn_kernel(feats, window, center,
+                                    normalize_variance)
+    return sliding_cmvn_reference(feats, window, center, normalize_variance)
+
+
+def sliding_cmvn_reference(feats: torch.Tensor, window: int = 300,
+                           center: bool = True,
+                           normalize_variance: bool = False) -> torch.Tensor:
+    """:func:`sliding_cmvn`'s plain version (f64 prefix sums): the CPU path,
+    and the kernel's yardstick on the card."""
     t = feats.shape[0]
     win = min(window, t)
     x = feats.to(torch.float32)
@@ -372,6 +406,45 @@ def sliding_cmvn(feats: torch.Tensor, window: int = 300, center: bool = True,
             - mean.square()
         out = out * torch.rsqrt(var.clamp(min=1e-10)).to(feats.dtype)
     return out
+
+
+def _cmvn_lib() -> ctypes.CDLL:
+    lib = _build.load(CMVN_SOURCE)
+    if lib.sliding_cmvn_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.sliding_cmvn_launch.argtypes = [p, p, i, i, i, i, i, p]
+        lib.sliding_cmvn_launch.restype = ctypes.c_int
+    return lib
+
+
+def _sliding_cmvn_kernel(feats, window, center, normalize_variance):
+    """:func:`sliding_cmvn` of a CUDA tensor: one launch of the kernel.
+    The C function refuses, and this raises, a window whose rows overflow
+    a block's shared memory (beyond ~58,000 frames)."""
+    global cmvn_launches
+    if feats.dim() != 2:
+        raise ValueError(f"sliding_cmvn takes (T, D) features, got shape "
+                         f"{tuple(feats.shape)}")
+    t, d = feats.shape
+    if t == 0 or d == 0:
+        return feats.new_empty(feats.shape)
+    if window < 1:
+        raise ValueError(f"sliding_cmvn window must be >= 1, got {window}")
+    win = min(window, t)
+    off = win // 2 if center else win - 1
+    x = feats.to(torch.float32).contiguous()
+    out = torch.empty_like(x)
+    dev = x.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _cmvn_lib().sliding_cmvn_launch(
+            x.data_ptr(), out.data_ptr(), t, d, win, off,
+            int(normalize_variance), stream)
+    if rc != 0:
+        raise RuntimeError(f"sliding CMVN kernel (T={t}, D={d}, win={win}) "
+                           f"failed: cudaError {rc}")
+    cmvn_launches += 1
+    return out.to(feats.dtype)
 
 
 # ---------------------------------------------------------------------------
