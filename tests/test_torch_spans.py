@@ -91,6 +91,7 @@ TRAIN_NESTING = [
     ("xv.train.device_drain", "xv.train.iteration"),
     ("xv.train.upload", "xv.train.dispatch"),
     ("xv.train.forward", "xv.train.dispatch"),
+    ("xv.model.frame", "xv.train.forward"),
     ("xv.train.head", "xv.train.dispatch"),
     ("xv.train.backward", "xv.train.dispatch"),
     ("xv.train.optimizer", "xv.train.dispatch"),
@@ -123,13 +124,16 @@ def test_train_one_iteration_opens_every_span_nested(tmp_path):
         "xv.train.iteration"}
     for child, parent in TRAIN_NESTING:
         assert _inside(found, child, parent), (child, parent)
-    # three minibatches: three forward passes, heads, backward passes and
-    # updates, two dispatches (the block and the single step)
-    assert [len(found[n]) for n in ("xv.train.forward", "xv.train.head",
+    # three minibatches: three forward passes (of five frame layers each),
+    # heads, backward passes and updates, two dispatches (the block and the
+    # single step)
+    assert [len(found[n]) for n in ("xv.train.forward", "xv.model.frame",
+                                    "xv.train.head",
                                     "xv.train.backward",
                                     "xv.train.optimizer",
                                     "xv.train.dispatch",
-                                    "xv.train.bn_fold")] == [3, 3, 3, 3, 2, 1]
+                                    "xv.train.bn_fold")] == [3, 15, 3, 3, 3,
+                                                             2, 1]
     # every span on the thread that called the iteration; the consumer
     # waits on the loader's queue once a minibatch, and once at its end
     (main, *_), = found["xv.train.iteration"]

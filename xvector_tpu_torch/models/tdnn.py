@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..ops import conv_bwd
 from ..parallel import mesh as meshlib
+from ..utils.profiling import span, tracing
 from .convert import tree_map
 
 VAR2STD_EPSILON = 1e-5
@@ -314,10 +315,32 @@ def fold_bn_state(state0: State, stacked: State, decay: float) -> State:
             for part in state0}
 
 
+# Calls of each route of :func:`_conv1d_same` so far, the counterpart of
+# ``ops/conv_bwd.route_launches``; the tests zero and read them.
+route_calls = {"unfold": 0, "dense": 0, "fused": 0, "shifted": 0}
+
+
+def conv_route(x_shape, w_shape, dilation: int, dtype,
+               fused_bwd: bool = False) -> str:
+    """The route :func:`_conv1d_same` takes for x (B, T, Cin) ⊛ w (K, Cin,
+    Cout) in ``dtype``: ``"dense"`` (k = 1, one matmul), ``"unfold"``
+    (k·Cin ≤ 160, the MFCC front layer unfolded into one matmul),
+    ``"fused"`` (``fused_bwd``, a wide layer the kernels of
+    ``ops/conv_bwd`` take: K2-K4) or ``"shifted"`` (k shifted matmuls)."""
+    k, cin, _ = w_shape
+    if k == 1:
+        return "dense"
+    if k * cin <= 160:
+        return "unfold"
+    if fused_bwd and conv_bwd.supports(x_shape, w_shape, dilation, dtype):
+        return "fused"
+    return "shifted"
+
+
 def _conv1d_same(x, w, dilation: int, fused_bwd: bool = False):
     """(B, T, Cin) ⊛ (K, Cin, Cout) → (B, T, Cout), SAME padding, in the
-    weight dtype.  Narrow inputs (k·Cin ≤ 160, the MFCC front layer) are
-    unfolded into one matmul; wider ones take k shifted matmuls.
+    weight dtype, by the route :func:`conv_route` names (counted in
+    :data:`route_calls`).
 
     ``fused_bwd`` sends a wide k > 1 layer (k·Cin > 160) in bf16 to
     ``ops/conv_bwd.conv1d_same_fused_bwd``: the hand-written forward and
@@ -328,16 +351,16 @@ def _conv1d_same(x, w, dilation: int, fused_bwd: bool = False):
     k, cin, cout = w.shape
     x = x.to(w.dtype)
     t = x.shape[1]
-    left = (k - 1) // 2 * dilation
-    right = (k - 1) * dilation - left
-    if k == 1:
+    route = conv_route(x.shape, w.shape, dilation, w.dtype, fused_bwd)
+    route_calls[route] += 1
+    if route == "dense":
         return x @ w[0]
-    if (fused_bwd and k * cin > 160
-            and conv_bwd.supports(x.shape, w.shape, dilation, w.dtype)):
+    if route == "fused":
         return conv_bwd.conv1d_same_fused_bwd(x.contiguous(), w.contiguous(),
                                               dilation)
-    xp = F.pad(x, (0, 0, left, right))
-    if k * cin <= 160:
+    left = (k - 1) // 2 * dilation
+    xp = F.pad(x, (0, 0, left, (k - 1) * dilation - left))
+    if route == "unfold":
         xu = torch.cat([xp[:, j * dilation: j * dilation + t]
                         for j in range(k)], dim=-1)
         return xu @ w.reshape(k * cin, cout)
@@ -420,7 +443,9 @@ def apply(cfg: TdnnConfig, params: Params, state: State, x, *, mask=None,
     group of a mesh) makes the train-mode batch-norm moments global over
     its ranks' rows; ``head_group`` (the model group) sums the L2 term of
     a head whose columns are split over its ranks, with an identity
-    backward.
+    backward.  Each frame layer (conv, bias, activation, batch norm, mask)
+    is the span ``xv.model.frame``, whose args name the layer's index, k,
+    dilation and :func:`conv_route`.
 
     Returns ``logits`` (B, num_classes) or None with ``skip_head``,
     ``xvector`` (the embed-0 pre-activation), ``hidden``, ``pooled``,
@@ -445,15 +470,25 @@ def apply(cfg: TdnnConfig, params: Params, state: State, x, *, mask=None,
 
     if m is not None:
         h = h * m.to(h.dtype)        # zero pad frames (SAME-style padding)
+    traced = tracing()
     for i, layer in enumerate(params["frame"]):
-        h = _conv1d_same(h, layer["w"].to(compute_dtype), cfg.dilations[i],
-                         fused_bwd=fused_conv_bwd
-                         ) + layer["b"].to(compute_dtype)
-        h = _activate(cfg, layer, h)
-        h, bn_s = _batch_norm(h, layer["bn"], state["frame"][i], m, train,
-                              cfg, stats_out=bn_stats_out, group=group)
-        if m is not None:
-            h = h * m.to(h.dtype)    # keep pad positions zero for next conv
+        d = cfg.dilations[i]
+        args = None
+        if traced:
+            route = conv_route(h.shape, layer["w"].shape, d, compute_dtype,
+                               fused_conv_bwd)
+            args = (f"layer={i} k={layer['w'].shape[0]} dilation={d} "
+                    f"route={route}")
+        with span("xv.model.frame", args):
+            h = _conv1d_same(h, layer["w"].to(compute_dtype), d,
+                             fused_bwd=fused_conv_bwd
+                             ) + layer["b"].to(compute_dtype)
+            h = _activate(cfg, layer, h)
+            h, bn_s = _batch_norm(h, layer["bn"], state["frame"][i], m,
+                                  train, cfg, stats_out=bn_stats_out,
+                                  group=group)
+            if m is not None:
+                h = h * m.to(h.dtype)    # keep pad positions zero
         new_state["frame"].append(bn_s)
         if i != cfg.num_frame_layers - 1:
             h = dropout(h)
