@@ -30,15 +30,21 @@ Phases; any failure raises and the exit code is non-zero:
    stay within 1e-2 and masked frames must be exact zeros; then sliding
    CMVN's kernel (``csrc/cmvn_sm90.cu``) against its plain version (the
    f64 prefix-sum chain, on the same card tensor) at 8,526x23 and
-   30,000x23, window 300, centred, within 1e-5 * max(1, max|feats|), and
-   timed: the kernel by the profiler, the wrapper's host cost a call, the
-   plain chain by CUDA events, beside the byte bound (2*T*D*4 bytes);
+   30,000x23, window 300, centred, within 1e-5 * max(1, max|feats|),
+   without a map and with a VAD's destination map (CMVN and voiced-frame
+   selection in one launch, against the plain version's boolean
+   selection), each timed: the kernel by the profiler, the wrapper's host
+   cost a call, beside the byte bound (2*T*D*4 bytes; with the map
+   (T*D + T + rows*D)*4); the plain chain by CUDA events; ``preprocess``
+   from a host array a call against the pair it replaced (pageable
+   upload, kernel, download, host selection), whose rows it must equal;
 4. the serving path at full width (``no_dropout``, 7,185 classes, random
    weights from ``--seed``): Kaldi feature and VAD arks written and read
    back, ``preprocess`` (sliding CMVN + VAD: one CMVN kernel launch a
-   call, counted from zero over the calls, and each call's frames held to
-   ``preprocess`` on the CPU within the CMVN bound), ``XvectorExtractor``
-   in bf16
+   call, counted from zero over the calls, its rows left on the card and
+   each call's frames held to ``preprocess`` on the CPU within the CMVN
+   bound), ``XvectorExtractor`` in bf16, which must upload none of them
+   again (``counters["host_inputs"]`` 0),
    with the fused kernel (the main path, with the launch counts zeroed just
    before it and read just after: layer 0 on "l0_sm90", layers 1-4 on
    "sm90", none on "sm80") and without it, x-vectors compared
@@ -118,7 +124,9 @@ Phases; any failure raises and the exit code is non-zero:
    CPU on 16 rows (features and CMVN rtol 1e-4, atol 2e-3; VAD decisions
    equal but within 1e-3 of a row's threshold, at most 0.1% of frames);
    fused against unfused (cosine ≥ 0.999); f32 on the card against the
-   CPU (1e-3); the long utterance against its host chain (1e-4);
+   CPU (1e-3); the long utterance against its host chain (1e-4), with
+   neither extractor uploading ``preprocess``'s rows again
+   (``host_inputs`` 0);
    ``cli.extract_embedding --wav-rspecifier`` rows equal to the main
    path's; augmentation card against CPU (1e-4, SNR within 0.05 dB); card
    features through the compressed writer within CM's step; timing lines:
@@ -301,10 +309,11 @@ Phases; any failure raises and the exit code is non-zero:
 
 The line before the last is ``{"kernels": [...]}`` (K1 and K2-K4 in the
 main path's designs, rows for the "sm80" designs with their main-path
-launch counts, and sliding CMVN's row, its launches over phase 4's
-``preprocess`` calls; each with its launches over the CLI phase as
-``cli_launches``, over the recipe's stages (training for K2-K4, both
-extraction stages for K1) as ``recipe_launches``, over run_sre16's
+launch counts, and sliding CMVN's rows, without a map and with one, the
+second with its launches over phase 4's ``preprocess`` calls; each with
+its launches over the CLI phase as ``cli_launches``, over the recipe's
+stages (training for K2-K4, both extraction stages for K1) as
+``recipe_launches``, over run_sre16's
 runs (training for K2-K4, both runs' extraction for K1) as
 ``sre16_launches`` and over phase 15's multi-rank run (its straight run's
 training for K2-K4, its sharded extraction for K1, summed over the ranks)
@@ -548,52 +557,106 @@ def cmvn_bound(x) -> float:
     return CMVN_BOUND * max(1.0, float(np.abs(np.asarray(x)).max()))
 
 
-def phase_cmvn(FE, dev, seed, tag, calls=20):
-    """Sliding CMVN's kernel against its plain version on the same card
-    tensor, window 300, centred, at each of ``CMVN_SHAPES``, then timed:
-    the kernel's profiled device time (median over ``calls`` launches
-    after one left out), the wrapper's host cost a call, the plain chain
-    (CUDA events) and the byte bound.  Returns the rows by (T, D)."""
+def cmvn_profiled_ms(fn, calls, label):
+    """Median profiled device time (ms) of the sliding CMVN kernel over
+    ``calls`` launches of ``fn`` after one left out."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls + 1):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and "sliding_cmvn_kernel" in e.name),
+        key=lambda e: e.time_range.start)][-calls:]
+    if len(us) < calls:
+        fail(f"{label}: the profiler saw {len(us)} of {calls + 1} kernel "
+             "launches")
+    return statistics.median(us) / 1e3
+
+
+def phase_cmvn(FE, TE, dev, seed, tag, calls=20):
+    """Sliding CMVN's kernel against its plain version on the same card
+    tensor, window 300, centred, at each of ``CMVN_SHAPES``, without a map
+    and with a VAD's destination map (CMVN and voiced-frame selection in
+    one launch, held to the plain version's boolean selection), then
+    timed: each launch's profiled device time (median over ``calls``
+    launches after one left out), the wrapper's host cost a call, the
+    plain chain (CUDA events), the byte bound, and ``preprocess`` from a
+    host array a call against the pair it replaced (a pageable upload,
+    the kernel, a pageable download, selection on the host).  Returns the
+    rows by (T, D) and by ("select", T, D)."""
     rows = {}
     for t, d in CMVN_SHAPES:
         g = torch.Generator().manual_seed(seed + 17 * t + d)
         x = (torch.randn(t, d, generator=g)
              + 3.0 * torch.randn(d, generator=g)).to(dev)
-        before = FE.cmvn_launches
-        got = FE.sliding_cmvn(x, 300)
-        if FE.cmvn_launches != before + 1:
-            fail(f"CMVN {t}x{d}: the card call did not launch the kernel")
-        err = float((got - FE.sliding_cmvn_reference(x, 300)).abs().max())
+        vad = (torch.rand(t, generator=g) > 0.26).numpy().astype(np.float32)
+        dest, n = FE.voiced_map(vad)
+        dest_d = torch.from_numpy(dest).to(dev)
+        plain = FE.sliding_cmvn_reference(x, 300)
         lim = cmvn_bound(x.cpu())
-        print(f"CMVN kernel vs plain {t}x{d} window 300: max abs error "
-              f"{err:.3g} (bound {lim:.3g})")
-        if not err <= lim:
-            fail(f"CMVN {t}x{d}: the kernel disagrees with its plain version")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls + 1):
-                FE.sliding_cmvn(x, 300)
-            torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in sorted(
-            (e for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and "sliding_cmvn_kernel" in e.name),
-            key=lambda e: e.time_range.start)][-calls:]
-        if len(us) < calls:
-            fail(f"CMVN {t}x{d}: the profiler saw {len(us)} of {calls + 1} "
-                 "kernel launches")
-        ms = statistics.median(us) / 1e3
-        call_ms = host_ms(lambda: FE.sliding_cmvn(x, 300), calls=200)
+        runs = {"cmvn": lambda: FE.sliding_cmvn(x, 300),
+                "select": lambda: FE.sliding_cmvn(x, 300, dest=dest_d,
+                                                  rows=n)}
+        wants = {"cmvn": plain,
+                 "select": plain[torch.from_numpy(vad > 0.5).to(dev)]}
+        for name, fn in runs.items():
+            label = f"CMVN {t}x{d}" + (" with the map" if name == "select"
+                                       else "")
+            before = FE.cmvn_launches
+            got = fn()
+            if FE.cmvn_launches != before + 1:
+                fail(f"{label}: the card call did not launch the kernel")
+            if got.shape != wants[name].shape:
+                fail(f"{label}: {tuple(got.shape)} rows out, expected "
+                     f"{tuple(wants[name].shape)}")
+            err = float((got - wants[name]).abs().max())
+            print(f"{label} kernel vs plain window 300: max abs error "
+                  f"{err:.3g} (bound {lim:.3g}; {n} of {t} frames voiced)")
+            if not err <= lim:
+                fail(f"{label}: the kernel disagrees with its plain version")
+            ms = cmvn_profiled_ms(fn, calls, label)
+            call_ms = host_ms(fn, calls=200)
+            nbytes = (2 * t * d * 4 if name == "cmvn"
+                      else (t * d + t + n * d) * 4)
+            bound_ms, by = bound(0, nbytes)
+            rows[(t, d) if name == "cmvn" else ("select", t, d)] = {
+                "ms": ms, "call_host_ms": call_ms, "bound_ms": bound_ms,
+                "bound_by": by, "max_abs_err": err}
+            print(f"timing {label} window 300: {ms * 1e3:.2f} us "
+                  f"(profiled), {call_ms * 1e3:.2f} us a call on the host; "
+                  f"bound {bound_ms * 1e3:.3f} us by {by} "
+                  f"({bound_ms / ms:.1%}) [{tag}]")
         plain_ms = cuda_ms(lambda: FE.sliding_cmvn_reference(x, 300))
-        bound_ms, by = bound(0, 2 * t * d * 4)
-        print(f"timing CMVN kernel {t}x{d} window 300: {ms * 1e3:.2f} us "
-              f"(profiled), {call_ms * 1e3:.2f} us a call on the host; "
-              f"plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.3f} "
-              f"us by {by} ({bound_ms / ms:.1%}) [{tag}]")
-        rows[(t, d)] = {"ms": ms, "call_host_ms": call_ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": by, "max_abs_err": err}
+        rows[(t, d)]["plain_ms"] = plain_ms
+        print(f"timing CMVN {t}x{d} plain chain: {plain_ms * 1e3:.1f} us "
+              f"[{tag}]")
+        feats = x.cpu().numpy()
+        feats.setflags(write=False)            # as an ark's view
+
+        def pair():
+            y = FE.sliding_cmvn(torch.from_numpy(np.array(feats)).to(dev),
+                                300)
+            return FE.select_voiced_frames(y.cpu().numpy(), vad)
+
+        pre_ms = host_ms(lambda: TE.preprocess(feats, vad=vad, device=dev),
+                         calls=200)
+        pair_ms = host_ms(pair, calls=200)
+        same = torch.equal(TE.preprocess(feats, vad=vad, device=dev).cpu(),
+                           torch.from_numpy(pair()))
+        rows[("select", t, d)].update(preprocess_host_ms=pre_ms,
+                                      pair_host_ms=pair_ms)
+        print(f"timing preprocess {t}x{d} from a host array: "
+              f"{pre_ms * 1e3:.1f} us a call (pinned upload, one launch, "
+              f"rows left on the card) against {pair_ms * 1e3:.1f} us for "
+              f"the pair it "
+              f"replaced (pageable upload, kernel, download, host "
+              f"selection); the same rows {same} [{tag}]")
+        if not same:
+            fail(f"CMVN {t}x{d}: preprocess and the pair it replaced part")
     return rows
 
 
@@ -618,11 +681,12 @@ def write_arks(kio, tmp, seed):
 
 
 def run_extractor(TE, cfg, params, state, utts, fused, dev):
+    """(x-vectors, host seconds, the extractor's ``host_inputs``)."""
     ex = TE.XvectorExtractor(cfg, params, state, TE.ExtractorConfig(
         compute_dtype="bfloat16", use_fused=fused), device=dev)
     t0 = time.perf_counter()
     out = ex.extract(utts)          # results come back as numpy: synced
-    return out, time.perf_counter() - t0
+    return out, time.perf_counter() - t0, ex.counters["host_inputs"]
 
 
 def phase_serving(tt, TE, TK, FE, kio, dev, seed, tag):
@@ -645,11 +709,13 @@ def phase_serving(tt, TE, TK, FE, kio, dev, seed, tag):
         mats = dict(kio.read_mat_ark(feats_ark))
         pre_err = 0.0
         for k, f in utts:
+            if f.device.type != "cuda":
+                fail(f"serving: preprocess left {k}'s rows on {f.device}")
             want = TE.preprocess(mats[k], vad=vads[k], device="cpu")
             if f.shape != want.shape:
                 fail(f"serving: preprocess kept {f.shape[0]} frames of {k} "
                      f"on the card, {want.shape[0]} on the CPU")
-            pre_err = max(pre_err, float(np.abs(f - want).max())
+            pre_err = max(pre_err, float((f.cpu() - want).abs().max())
                           / cmvn_bound(mats[k]))
         print(f"serving: preprocess card vs CPU max abs error "
               f"{pre_err:.3g} of the CMVN bound")
@@ -667,12 +733,16 @@ def phase_serving(tt, TE, TK, FE, kio, dev, seed, tag):
         TK.launches = 0
         for n in TK.route_launches:
             TK.route_launches[n] = 0
-        xv_fused, s_fused = run_extractor(TE, cfg, params, state, utts,
-                                          True, dev)
+        xv_fused, s_fused, host_inputs = run_extractor(
+            TE, cfg, params, state, utts, True, dev)
         main_launches = TK.launches
         main_routes = dict(TK.route_launches)
-        xv_plain, s_plain = run_extractor(TE, cfg, params, state, utts,
-                                          False, dev)
+        print(f"serving: utterances the main path had to upload "
+              f"(host_inputs) {host_inputs} of {len(kept)}")
+        if host_inputs:
+            fail("serving: extract_iter uploaded preprocess's rows again")
+        xv_plain, s_plain, _ = run_extractor(TE, cfg, params, state, utts,
+                                             False, dev)
         if main_launches == 0:
             fail("the fused run launched K1 no time")
         if TK.launches != main_launches:
@@ -765,7 +835,7 @@ def phase_batch_timing(tt, TE, dev, seed, tag):
         host = []
         for _ in range(10):
             t0 = time.perf_counter()
-            ex._run(x, mask)
+            ex._run(xd, md)
             host.append((time.perf_counter() - t0) * 1e3)
         host_ms = statistics.median(host)
         name = "fused" if fused else "unfused"
@@ -788,6 +858,7 @@ def phase_profile(tt, TE, dev, seed, tag):
     mask = np.ones((bsz, t), np.float32)
     ex = TE.XvectorExtractor(cfg, params, state, TE.ExtractorConfig(
         compute_dtype="bfloat16", use_fused=True), device=dev)
+    x, mask = torch.from_numpy(x).to(dev), torch.from_numpy(mask).to(dev)
     ex._run(x, mask)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2210,10 +2281,19 @@ def phase_wave(tt, TE, CB, TK, kio, dev, seed, tag, tmp):
                         device=dev)
     if TF.cmvn_launches != before + 1:
         fail("wave: preprocess on the card left the CMVN kernel")
-    chain = TE.XvectorExtractor(cfg, params, state, TE.ExtractorConfig(
+    if pre.device.type != "cuda":
+        fail(f"wave: preprocess left the rows on {pre.device}")
+    chain_ex = TE.XvectorExtractor(cfg, params, state, TE.ExtractorConfig(
         max_chunk=wcfg.max_chunk, batch_size=max(1, WAVE_BATCH // 4),
-        compute_dtype="bfloat16", use_fused=True), device=dev).extract(
-            [(long_utt, pre)])[long_utt]
+        compute_dtype="bfloat16", use_fused=True), device=dev)
+    chain = chain_ex.extract([(long_utt, pre)])[long_utt]
+    uploads = (chain_ex.counters["host_inputs"],
+               ex._long.counters["host_inputs"])
+    print(f"wave check long utterance: utterances uploaded again "
+          f"(host_inputs) by the chain's extractor and the main path's "
+          f"long path: {uploads[0]}, {uploads[1]}")
+    if any(uploads):
+        fail("wave: preprocess's rows went back to the host and up again")
     long_err = float(np.abs(xv_main[long_utt] - chain).max()
                      / np.abs(chain).max())
     print(f"wave check long utterance ({len(by_utt[long_utt]) / WAVE_SR:g} "
@@ -5097,7 +5177,7 @@ def main(argv=None) -> int:
 
     # 3. K1 against its plain version, then sliding CMVN's kernel
     errs = phase_kernel_checks(tt, TK, dev, args.seed)
-    cmvn = phase_cmvn(FE, dev, args.seed, tag)
+    cmvn = phase_cmvn(FE, TE, dev, args.seed, tag)
 
     # 4. the serving path
     _, main_routes, cmvn_launches = phase_serving(tt, TE, TK, FE, kio, dev,
@@ -5283,20 +5363,33 @@ def main(argv=None) -> int:
             "bound_by": per_k[0]["bound_by"],
             "shapes": "64x304, 512->512, k=5 and k=7 (mean per call)",
         })
-    # sliding CMVN: one launch a preprocess call on the card; replaces no
-    # TPU kernel (the JAX package takes its window sums with
-    # lax.reduce_window)
+    # sliding CMVN: replaces no TPU kernel (the JAX package takes its
+    # window sums with lax.reduce_window); without a map it serves
+    # preprocess without a VAD, which phase 4 does not call
     kernels.append({
         "name": "sliding_cmvn",
         "route": "cuda",
         "source": "xvector_tpu_torch/csrc/cmvn_sm90.cu",
         "replaces": None,
-        "launches": cmvn_launches,
+        "launches": None,
         **cmvn[CMVN_SHAPES[0]],
         # no single PyTorch call computes it
         "library_ms": None,
         "shapes": "8526x23, window 300, centred",
         "t30000": cmvn[CMVN_SHAPES[1]],
+    })
+    # ... with a VAD's destination map, CMVN and voiced-frame selection in
+    # one launch: one a preprocess call on the card (phase 4's calls)
+    kernels.append({
+        "name": "sliding_cmvn_select",
+        "route": "cuda",
+        "source": "xvector_tpu_torch/csrc/cmvn_sm90.cu",
+        "replaces": None,
+        "launches": cmvn_launches,
+        **cmvn[("select",) + CMVN_SHAPES[0]],
+        "library_ms": None,
+        "shapes": "8526x23, window 300, centred, ~74% of frames voiced",
+        "t30000": cmvn[("select",) + CMVN_SHAPES[1]],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

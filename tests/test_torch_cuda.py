@@ -235,19 +235,83 @@ def test_sliding_cmvn_kernel_takes_other_dtypes_and_layouts(kind,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("voiced", ["random", "one"])
+@pytest.mark.parametrize("t", [40, 1000, 8526, 30000])
+def test_sliding_cmvn_kernel_selects_by_its_map(t, voiced, cuda_device):
+    """CMVN and voiced-frame selection in one launch: the rows the map
+    keeps equal the plain version's boolean selection within the CMVN
+    bound, down to a map that drops every frame but one."""
+    x = _cmvn_feats(t, 23, 7 * t + 1)
+    if voiced == "random":
+        vad = (np.random.default_rng(t).random(t) > 0.26).astype(np.float32)
+    else:
+        vad = np.zeros(t, np.float32)
+        vad[t // 3] = 1.0
+    dest, rows = FE.voiced_map(vad)
+    want = FE.sliding_cmvn_reference(x, 300)[torch.from_numpy(vad > 0.5)]
+    before = FE.cmvn_launches
+    got = FE.sliding_cmvn(x.to(cuda_device), 300,
+                          dest=torch.from_numpy(dest).to(cuda_device),
+                          rows=rows)
+    torch.cuda.synchronize()
+    assert FE.cmvn_launches == before + 1
+    assert got.is_cuda and got.dtype == torch.float32
+    assert got.shape == want.shape == (rows, 23)
+    err = float((got.cpu() - want).abs().max())
+    assert err <= _cmvn_bound(x), err
+
+
+@pytest.mark.cuda
 def test_preprocess_on_card_takes_the_kernel_once_a_call(cuda_device):
+    """One launch a call, none for an utterance with no voiced frame; the
+    rows stay on the card."""
     rng = np.random.default_rng(3)
     before = FE.cmvn_launches
     sizes = (40, 1000, 8526)
     for n in sizes:
         feats = (rng.standard_normal((n, 23))
                  + 3.0 * rng.standard_normal(23)).astype(np.float32)
+        feats.setflags(write=False)            # as an ark's view
         vad = (rng.random(n) > 0.3).astype(np.float32)
         got = TE.preprocess(feats, vad=vad, device=cuda_device)
+        assert got.is_cuda and got.dtype == torch.float32
         want = TE.preprocess(feats, vad=vad, device="cpu")
         assert got.shape == want.shape == (int((vad > 0.5).sum()), 23)
-        assert np.abs(got - want).max() <= _cmvn_bound(feats)
+        assert float((got.cpu() - want).abs().max()) <= _cmvn_bound(feats)
     assert FE.cmvn_launches == before + len(sizes)
+    none = TE.preprocess(feats, vad=np.zeros(len(feats), np.float32),
+                         device=cuda_device)
+    assert none.is_cuda and none.shape == (0, 23)
+    assert FE.cmvn_launches == before + len(sizes)
+
+
+@pytest.mark.cuda
+def test_extract_iter_on_card_tensors_uploads_nothing(cuda_device):
+    """``preprocess``'s rows go through ``extract_iter`` without an upload
+    (``host_inputs`` 0), to the same x-vectors as the same rows fed as
+    host arrays."""
+    cfg, params, state = _model("no_dropout", cuda_device)
+    rng = np.random.default_rng(4)
+    utts = []
+    for i, n in enumerate((300, 1200, 60, 2500, 700)):
+        feats = (rng.standard_normal((n, 23))
+                 + 3.0 * rng.standard_normal(23)).astype(np.float32)
+        vad = (rng.random(n) > 0.3).astype(np.float32)
+        utts.append((f"u{i}", TE.preprocess(feats, vad=vad,
+                                            device=cuda_device)))
+    ecfg = TE.ExtractorConfig(min_chunk=25, max_chunk=1000, batch_size=2,
+                              compute_dtype="bfloat16", use_fused=True)
+    on_card = TE.XvectorExtractor(cfg, params, state, ecfg,
+                                  device=cuda_device)
+    got = on_card.extract(utts)
+    assert on_card.counters["host_inputs"] == 0
+    from_host = TE.XvectorExtractor(cfg, params, state, ecfg,
+                                    device=cuda_device)
+    want = from_host.extract([(u, f.cpu().numpy()) for u, f in utts])
+    assert from_host.counters["host_inputs"] == len(utts)
+    assert list(got) == list(want) == [u for u, _ in utts]
+    for u in want:
+        np.testing.assert_array_equal(got[u], want[u])
 
 
 @pytest.mark.cuda
@@ -269,9 +333,12 @@ def test_sliding_cmvn_kernel_rejects_what_it_does_not_take(cuda_device,
     lib = FE._cmvn_lib()
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream().cuda_stream
-    for win, off in ((11, 5), (10, 10), (0, 0), (4, -1)):
-        assert lib.sliding_cmvn_launch(x.data_ptr(), out.data_ptr(), 10, 23,
-                                       win, off, 0, stream) == invalid
+    for win, off, rows in ((11, 5, 10), (10, 10, 10), (0, 0, 10),
+                           (4, -1, 10), (4, 1, 9)):
+        # (4, 1, 9): without a map every frame is a row
+        assert lib.sliding_cmvn_launch(x.data_ptr(), None, out.data_ptr(),
+                                       10, 23, win, off, rows, 0,
+                                       stream) == invalid
     # a launch the C function reports failed raises and is not counted
 
     class Refused:

@@ -135,9 +135,58 @@ def test_preprocess_matches_jax():
     want = JE.preprocess(feats, cmvn_window=300, vad=vad)
     got = TE.preprocess(feats, cmvn_window=300, vad=vad, device="cpu")
     assert got.shape == want.shape == (int(vad.sum()), 23)
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(TF.select_voiced_frames(feats, vad),
                                   JF.select_voiced_frames(feats, vad))
+
+
+@pytest.mark.parametrize("case", ["mixed", "all_voiced", "none_voiced",
+                                  "shorter_than_window", "no_vad"])
+def test_preprocess_is_cmvn_then_voiced_selection(case):
+    """One call of ``sliding_cmvn`` with the VAD's destination map equals
+    the plain version followed by ``select_voiced_frames``, bit for bit,
+    from a read-only view such as an ark gives."""
+    t = 120 if case == "shorter_than_window" else 700
+    rng = np.random.RandomState(t)
+    feats = (rng.randn(t + 1, 23) * 2 + 5).astype(np.float32)[1:]
+    feats.setflags(write=False)
+    vad = {"all_voiced": np.ones(t, np.float32),
+           "none_voiced": np.zeros(t, np.float32),
+           "no_vad": None}.get(case, (rng.rand(t) > 0.3).astype(np.float32))
+    got = TE.preprocess(feats, cmvn_window=300, vad=vad, device="cpu")
+    want = TF.sliding_cmvn_reference(torch.from_numpy(feats.copy()), 300)
+    if vad is not None:
+        want = torch.from_numpy(TF.select_voiced_frames(want.numpy(), vad))
+    assert isinstance(got, torch.Tensor)
+    assert got.device.type == "cpu" and got.dtype == torch.float32
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fed", ["numpy", "tensor", "mixed"])
+def test_extract_iter_takes_arrays_and_tensors_alike(model, fed):
+    """The same utterances fed as host arrays, as tensors on the
+    extractor's device, or mixed give the same x-vectors;
+    ``counters["host_inputs"]`` counts the host arrays it uploaded (not
+    the one too short to chunk)."""
+    _, _, tp, ts = model
+    utts = _utterances()
+    on_host = [fed == "numpy" or (fed == "mixed" and i % 2 == 0)
+               for i in range(len(utts))]
+    stream = [(u, f if host else torch.from_numpy(f))
+              for (u, f), host in zip(utts, on_host)]
+    ex = TE.XvectorExtractor(port_cfg(CFG), tp, ts,
+                             TE.ExtractorConfig(**COMMON), device="cpu")
+    got = ex.extract(stream)
+    want = TE.XvectorExtractor(port_cfg(CFG), tp, ts,
+                               TE.ExtractorConfig(**COMMON), device="cpu"
+                               ).extract(utts)
+    assert list(got) == list(want)
+    for utt in want:
+        np.testing.assert_array_equal(got[utt], want[utt])
+    assert ex.counters["host_inputs"] == sum(
+        host and len(f) >= COMMON["min_chunk"]
+        for (_, f), host in zip(utts, on_host))
 
 
 def test_speaker_means_matches_jax():

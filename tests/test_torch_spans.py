@@ -4,12 +4,14 @@
 thread the profiler does not record, and a named range under one; a tiny
 CPU ``train_one_iteration`` fed by a ``PrefetchLoader`` and a tiny
 ``extract_iter`` open every span of their layers, nested as the layers
-are; ``XvectorExtractor.counters`` match a hand count.
+are, whether the features come from ``preprocess`` or as host arrays;
+``XvectorExtractor.counters`` match a hand count.
 """
 
 import threading
 
 import numpy as np
+import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -143,12 +145,14 @@ def test_train_one_iteration_opens_every_span_nested(tmp_path):
 
 EXTRACT_NESTING = [
     ("xv.extract.cmvn", "xv.extract.preprocess"),
-    ("xv.extract.select_voiced", "xv.extract.preprocess"),
-    ("xv.extract.upload", "xv.extract.run"),
     ("xv.extract.frame_stack", "xv.extract.run"),
     ("xv.extract.pooling", "xv.extract.run"),
     ("xv.extract.embedding", "xv.extract.run"),
+    ("xv.extract.download", "xv.extract.run"),
 ]
+RUN_SPANS = {"xv.extract.pack", "xv.extract.run", "xv.extract.frame_stack",
+             "xv.extract.pooling", "xv.extract.embedding",
+             "xv.extract.download"}
 
 
 def _extractor(**kw):
@@ -161,7 +165,11 @@ def _extractor(**kw):
         device="cpu")
 
 
-def test_extract_iter_opens_every_span_nested():
+@pytest.mark.parametrize("fed", ["preprocessed", "host"])
+def test_extract_iter_opens_every_span_nested(fed):
+    """``preprocess``'s rows stay where it made them: nothing is uploaded
+    or read back before the batch's x-vectors; host arrays go up once an
+    utterance, outside the batches' runs."""
     ex = _extractor(use_fused=True)
     rng = np.random.RandomState(1)
     utts = [(f"u{i}", rng.randn(n, 23).astype(np.float32),
@@ -169,19 +177,28 @@ def test_extract_iter_opens_every_span_nested():
             for i, n in enumerate((90, 160, 60))]
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         out = dict(ex.extract_iter(
-            (u, X.preprocess(f, 30, v, device="cpu")) for u, f, v in utts))
+            (u, X.preprocess(f, 30, v, device="cpu") if fed == "preprocessed"
+             else f) for u, f, v in utts))
     assert sorted(out) == ["u0", "u1", "u2"]
     found = _spans(prof)
-    assert set(found) == {"xv.extract.preprocess", "xv.extract.cmvn",
-                          "xv.extract.download", "xv.extract.select_voiced",
-                          "xv.extract.pack", "xv.extract.run",
-                          "xv.extract.upload", "xv.extract.frame_stack",
-                          "xv.extract.pooling", "xv.extract.embedding"}
+    if fed == "preprocessed":
+        assert set(found) == RUN_SPANS | {"xv.extract.preprocess",
+                                          "xv.extract.cmvn"}
+        assert len(found["xv.extract.preprocess"]) == 3
+        assert ex.counters["host_inputs"] == 0
+    else:
+        assert set(found) == RUN_SPANS | {"xv.extract.upload"}
+        assert len(found["xv.extract.upload"]) == 3
+        assert ex.counters["host_inputs"] == 3
+        assert not any(rs <= us and ue <= re
+                       for _, us, ue in found["xv.extract.upload"]
+                       for _, rs, re in found["xv.extract.run"])
     for child, parent in EXTRACT_NESTING:
-        assert _inside(found, child, parent), (child, parent)
-    # each download is the preprocess's or the batch's
+        assert child not in found or _inside(found, child, parent), (
+            child, parent)
+    # the one read back a batch: its x-vectors
     runs = len(found["xv.extract.run"])
-    assert len(found["xv.extract.download"]) == 3 + runs
+    assert len(found["xv.extract.download"]) == runs
     assert len(found["xv.extract.pack"]) == runs == ex.counters["batches"]
     # a batch is packed before it runs, outside its run span
     assert not any(rs <= ps and pe <= re
@@ -209,9 +226,13 @@ def test_extractor_counters_match_a_hand_count():
     # chunks of at most 100 frames, a tail under 25 dropped (10 makes
     # none): 30 | 100 100 50 | 64 | 100 30; buckets 32, 64, 128, batches
     # of 2: {30, 30} in 32, {50, 64} in 64, {100, 100} and {100} in 128
+    # every utterance came as a host array; the one too short to chunk is
+    # not uploaded
     assert ex.counters == {"utterances": 4, "chunks": 7, "batches": 4,
                            "frames_real": 30 + 250 + 64 + 130,
-                           "frames_padded": 2 * 32 + 2 * 64 + 3 * 128}
+                           "frames_padded": 2 * 32 + 2 * 64 + 3 * 128,
+                           "host_inputs": 4}
     dict(ex.extract_iter(stream[:1]))        # running totals
-    assert (ex.counters["utterances"], ex.counters["frames_padded"]) == (
-        5, 2 * 32 + 2 * 64 + 3 * 128 + 32)
+    assert (ex.counters["utterances"], ex.counters["frames_padded"],
+            ex.counters["host_inputs"]) == (
+        5, 2 * 32 + 2 * 64 + 3 * 128 + 32, 5)

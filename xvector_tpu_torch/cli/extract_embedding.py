@@ -5,8 +5,8 @@ Counterpart of ``xvector_tpu/cli/extract_embedding.py`` (the reference's
 exactly one input:
 
 * ``--feats-rspecifier``: a feature ark/scp/pipe (pass ``--apply-cmvn`` /
-  ``--vad-scp`` to run the preprocessing here), extracted in
-  chunk-and-averaged batches;
+  ``--vad-scp`` to run the preprocessing here, on the device, where its
+  rows stay for the extractor), extracted in chunk-and-averaged batches;
 * ``--wav-rspecifier``: a Kaldi wav.scp (``scp:`` or ``scp,p:`` prefix
   optional; WAV, SPHERE incl. embedded shorten, ``#chN``, ``cmd |``
   pipes), run through the wave front end (MFCC, energy VAD, sliding CMVN,

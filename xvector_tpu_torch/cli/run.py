@@ -314,13 +314,18 @@ class Recipe:
                        {u: n_frames[u] for u in data.utt2spk
                         if u in n_frames})
 
-    def _load_processed(self, data: DataDir, utt: str) -> np.ndarray:
+    def _processed(self, data: DataDir, utt: str) -> torch.Tensor:
         """CMVN + voiced-frame-selected features for one utterance (the
-        prepare_feats_for_egs.sh / extract pipe semantics)."""
+        prepare_feats_for_egs.sh / extract pipe semantics), on the
+        device."""
         feats = kio.read_mat(data.feats[utt])
         vad = kio.read_vec_flt(data.vad[utt]) if data.vad else None
         return preprocess(feats, self.cfg.cmvn_window, vad,
                           device=self.device)
+
+    def _load_processed(self, data: DataDir, utt: str) -> np.ndarray:
+        """:meth:`_processed` on the host, for the egs archives."""
+        return self._processed(data, utt).cpu().numpy()
 
     # -- stage 2: egs (get_egs.sh) -----------------------------------------
     def _prepare_egs_feats(self, data: DataDir
@@ -530,7 +535,7 @@ class Recipe:
             replace(self.cfg.extractor,
                     use_fused=self._fused(trainer.model_cfg)),
             device=self.device)
-        stream = ((u, self._load_processed(data, u)) for u in data.utts)
+        stream = ((u, self._processed(data, u)) for u in data.utts)
         with kio.ArkWriter(ark, out_scp) as w:
             result = {}
             for utt, xv in ex.extract_iter(stream):

@@ -1,5 +1,6 @@
 // Sliding-window CMVN (Kaldi apply-cmvn-sliding) of one utterance's (T, D)
-// f32 features, row-major:
+// f32 features, row-major, and in the same pass voiced-frame selection
+// (select-voiced-frames):
 //
 //   s(t)   = clamp(t - off, 0, T - win)          off = win/2 centred,
 //                                                 win - 1 trailing
@@ -7,11 +8,18 @@
 //   y[t]   = x[t] - mean
 //   norm_vars: var = f32(sum f64(f32(x[r]^2)) / win) - mean*mean (f32),
 //              y[t] = (x[t] - mean) * (1 / sqrt(max(var, 1e-10)))
+//   out[dest[t]] = y[t]  where 0 <= dest[t] < rows; frame t dropped else
 //
 // with win = min(window, T): the window keeps win frames and slides rather
-// than shrinks at the edges.  Every f32 step rounds as ops/features.py's
-// plain version (sliding_cmvn on a CPU tensor) does; only the f64 window
-// sums are taken in another order.
+// than shrinks at the edges.  The destination map dest (int32, one entry a
+// frame) gives each frame's row in the (rows, D) output, -1 for a frame
+// that is dropped; the host builds it from the VAD with a prefix count of
+// the voiced frames, so it knows the output's rows without asking the card.
+// Without a map (a null pointer) frame t goes to row t.  The window sums
+// run over all T frames, voiced or not, as Kaldi's pipe applies CMVN before
+// it selects.  Every f32 step rounds as ops/features.py's plain version
+// (sliding_cmvn on a CPU tensor, then the boolean selection) does; only the
+// f64 window sums are taken in another order.
 //
 // Replaces no TPU kernel: the JAX package takes these window sums with
 // lax.reduce_window (xvector_tpu/ops/features.py _window_sums).  The
@@ -19,23 +27,25 @@
 // PyTorch's outer-dim scan, one thread per column walking all T rows
 // (~1.6 ms at T = 8,526, D = 23): most of extraction's device time.
 //
-// What bounds it on this card: bytes, 2·T·D·4 (0.23 us at T = 8,526,
-// D = 23 at 3.35 TB/s), so in practice the launch.  What the design does:
-// a block owns TILE consecutive output frames by up to COLS columns and
-// copies the rows its windows span (at most TILE - 1 + win) into shared
-// memory once, coalesced along D, by cp.async.  Thread (column c, run r)
-// owns RUN consecutive frames: it sums its first window directly from
-// shared memory in f64 (four partial sums), then slides, since the clamped
-// start moves by 0 or 1 a frame: one row in, one row out.  Direct f64 sums
-// over win rows are at least as exact as the plain version's differences
-// of a prefix sum over T rows.  Each output is written once, coalesced
-// along D.
+// What bounds it on this card: bytes, T·D·4 in, T·4 of map, rows·D·4 out
+// (0.2 us at T = 8,526, D = 23 at 3.35 TB/s), so in practice the launch and
+// the first window's f64 adds.  What the design does: a block owns TILE
+// consecutive input frames by up to COLS columns and copies the rows its
+// windows span (at most TILE - 1 + win) into shared memory once, coalesced
+// along D, by cp.async.  Thread (column c, run r) owns RUN consecutive
+// frames: it sums its first window directly from shared memory in f64
+// (four partial sums), then slides, since the clamped start moves by 0 or 1
+// a frame: one row in, one row out.  Direct f64 sums over win rows are at
+// least as exact as the plain version's differences of a prefix sum over T
+// rows.  A frame's map entry is one word that the 32 threads of its warp
+// read together; each kept output is written once, coalesced along D, to
+// its row, so selection costs no pass and no copy of its own.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TILE = 64;              // output frames per block
+constexpr int TILE = 64;              // frames per block
 constexpr int RUNS = 8;               // frame runs per block (blockDim.y)
 constexpr int RUN = TILE / RUNS;      // frames per thread
 constexpr int COLS = 32;              // columns per block at most (blockDim.x)
@@ -49,8 +59,9 @@ __device__ __forceinline__ int window_start(int t, int off, int last) {
 
 template <bool NORM_VARS>
 __global__ void __launch_bounds__(COLS * RUNS)
-sliding_cmvn_kernel(const float* __restrict__ x, float* __restrict__ out,
-                    int T, int D, int win, int off, int cols) {
+sliding_cmvn_kernel(const float* __restrict__ x,
+                    const int* __restrict__ dest, float* __restrict__ out,
+                    int T, int D, int win, int off, int rows_out, int cols) {
   extern __shared__ float tile[];     // [rows][nc]
   const int t0 = blockIdx.x * TILE;
   const int c0 = blockIdx.y * cols;
@@ -121,6 +132,8 @@ sliding_cmvn_kernel(const float* __restrict__ x, float* __restrict__ out,
       }
       s = st;
     }
+    const int row = dest == nullptr ? t : __ldg(dest + t);
+    if (row < 0 || row >= rows_out) continue;   // dropped: not voiced
     const float mean = static_cast<float>(sum / win);
     float y = __fsub_rn(tile[at(t)], mean);
     if constexpr (NORM_VARS) {
@@ -129,13 +142,13 @@ sliding_cmvn_kernel(const float* __restrict__ x, float* __restrict__ out,
       var = var < 1e-10f ? 1e-10f : var;   // a NaN stays NaN, as torch.clamp
       y = __fmul_rn(y, __fdiv_rn(1.0f, __fsqrt_rn(var)));
     }
-    out[static_cast<size_t>(t) * D + c0 + c] = y;
+    out[static_cast<size_t>(row) * D + c0 + c] = y;
   }
 }
 
 template <bool NORM_VARS>
-int launch(const float* x, float* out, int T, int D, int win, int off,
-           cudaStream_t stream) {
+int launch(const float* x, const int* dest, float* out, int T, int D,
+           int win, int off, int rows_out, cudaStream_t stream) {
   const int rows = min(T, TILE - 1 + win);
   int cols = min(min(D, COLS), SMEM_MAX / (rows * 4));
   if (cols < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -150,8 +163,8 @@ int launch(const float* x, float* out, int T, int D, int win, int off,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((T + TILE - 1) / TILE, ytiles);
-  kern<<<grid, dim3(COLS, RUNS), smem, stream>>>(x, out, T, D, win, off,
-                                                   cols);
+  kern<<<grid, dim3(COLS, RUNS), smem, stream>>>(x, dest, out, T, D, win,
+                                                   off, rows_out, cols);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -159,19 +172,25 @@ int launch(const float* x, float* out, int T, int D, int win, int off,
 
 extern "C" {
 
-// y = sliding CMVN of x, both (T, D) f32 row-major on the device.  Returns
-// a cudaError_t: cudaErrorInvalidValue, with nothing launched, unless
-// 1 <= win <= T, 0 <= off < win and min(T, TILE - 1 + win) f32 rows fit in
-// a block's shared memory.
-int sliding_cmvn_launch(const void* x, void* out, int T, int D, int win,
-                        int off, int norm_vars, void* stream) {
-  if (T < 1 || D < 1 || win < 1 || win > T || off < 0 || off >= win)
+// out = sliding CMVN of x, its frames selected by dest: x (T, D) and out
+// (rows, D) f32 row-major on the device, dest int32 (T,) on the device or
+// null (every frame t to row t: rows = T).  Returns a cudaError_t:
+// cudaErrorInvalidValue, with nothing launched, unless 1 <= win <= T,
+// 0 <= off < win, rows >= 1 (rows = T without a map) and
+// min(T, TILE - 1 + win) f32 rows fit in a block's shared memory.  Map
+// entries outside [0, rows) drop their frame.
+int sliding_cmvn_launch(const void* x, const void* dest, void* out, int T,
+                        int D, int win, int off, int rows, int norm_vars,
+                        void* stream) {
+  if (T < 1 || D < 1 || win < 1 || win > T || off < 0 || off >= win ||
+      rows < 1 || (dest == nullptr && rows != T))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* xf = static_cast<const float*>(x);
+  const int* map = static_cast<const int*>(dest);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return norm_vars ? launch<true>(xf, of, T, D, win, off, s)
-                   : launch<false>(xf, of, T, D, win, off, s);
+  return norm_vars ? launch<true>(xf, map, of, T, D, win, off, rows, s)
+                   : launch<false>(xf, map, of, T, D, win, off, rows, s);
 }
 
 }  // extern "C"

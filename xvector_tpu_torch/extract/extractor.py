@@ -9,8 +9,11 @@ Counterpart of ``xvector_tpu/extract/extractor.py``:
   protocol); chunks are padded to a small set of bucket lengths and
   batched ``batch_size`` at a time per bucket, with a frame mask for the
   padding; :func:`preprocess` applies sliding CMVN and voiced-frame
-  selection; ``XvectorExtractor.counters`` keeps running totals of the
-  utterances, chunks, batches and real and padded frames it ran;
+  selection in one call and leaves the rows on the device, where
+  ``extract_iter`` chunks, pads and runs them without a copy back;
+  ``XvectorExtractor.counters`` keeps running totals of the utterances,
+  chunks, batches, real and padded frames it ran and the utterances it had
+  to upload;
 * wave input (:class:`WaveExtractor`, :func:`make_wave_to_xvector`):
   padded batches of waveforms go through MFCC, energy VAD, sliding CMVN,
   voiced-frame compaction, the frame stack (K1 with ``use_fused``),
@@ -19,9 +22,10 @@ Counterpart of ``xvector_tpu/extract/extractor.py``:
 
 Output is ready for :class:`xvector_tpu_torch.io.kaldi_ark.ArkWriter`.
 Under a profiler the feature path's layers are ``xv.extract.*`` spans:
-``preprocess`` (its ``cmvn``, ``download`` and ``select_voiced``), ``pack``
-and ``run`` (its ``upload``, ``frame_stack``, ``pooling``, ``embedding``
-and ``download``).
+``preprocess`` (its ``cmvn``: staging, upload and the CMVN-and-selection
+launch), ``upload`` (an utterance that ``extract_iter`` was given on the
+host), ``pack`` and ``run`` (its ``frame_stack``, ``pooling``,
+``embedding`` and ``download``).
 """
 
 from __future__ import annotations
@@ -85,23 +89,59 @@ def _xvector(model_cfg, params, state, x, mask, compute_dtype, fused,
                 @ e0["w"].to(compute_dtype).to(f32)) + e0["b"]
 
 
-def preprocess(feats: np.ndarray, cmvn_window: int = 300,
+def _upload(dev: torch.device, *arrays) -> List[torch.Tensor]:
+    """Host arrays → tensors on ``dev`` (float32, or int32 for integer
+    arrays): each written once into one page-locked block of torch's
+    caching host allocator, which goes up in one copy that does not wait
+    on the card (the allocator keeps the block until the copy has run); on
+    the CPU written into one fresh tensor.  An array may be a read-only
+    view, such as an ark's."""
+    arrays = [np.asarray(a) for a in arrays]
+    sizes = [a.size for a in arrays]
+    buf = torch.empty(sum(sizes), dtype=torch.int32,
+                      pin_memory=dev.type == "cuda")
+    host, at = buf.numpy(), 0
+    for a, n in zip(arrays, sizes):
+        kind = np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
+        host[at:at + n].view(kind).reshape(a.shape)[...] = a
+        at += n
+    buf = buf.to(dev, non_blocking=True)
+    out, at = [], 0
+    for a, n in zip(arrays, sizes):
+        part = buf[at:at + n]
+        if not np.issubdtype(a.dtype, np.integer):
+            part = part.view(torch.float32)
+        out.append(part.view(a.shape))
+        at += n
+    return out
+
+
+def preprocess(feats, cmvn_window: int = 300,
                vad: Optional[np.ndarray] = None,
-               device="cuda") -> np.ndarray:
-    """Sliding CMVN (on ``device``) then voiced-frame selection (the
-    reference's ``apply-cmvn-sliding … | select-voiced-frames`` pipe)."""
+               device="cuda") -> torch.Tensor:
+    """Sliding CMVN then voiced-frame selection (the reference's
+    ``apply-cmvn-sliding … | select-voiced-frames`` pipe) in one call of
+    :func:`features.sliding_cmvn` with the VAD's destination map: on the
+    card one kernel launch.  Returns the voiced rows as an f32 (rows, D)
+    tensor on ``device`` without waiting for it.
+
+    ``feats`` (T, D) is a host array, which goes up once with the map
+    (:func:`_upload`), or a tensor, used in place on ``device``; ``vad``
+    (T,) is a host array: the map and its row count come from it on the
+    host."""
     dev = resolve_device(device)
-    with span("xv.extract.preprocess"):
-        with span("xv.extract.cmvn"):
-            # arks give read-only views
-            x = torch.from_numpy(np.array(feats)).to(dev)
-            out = F.sliding_cmvn(x, window=cmvn_window)
-        with span("xv.extract.download"):
-            out = out.cpu().numpy()
-        if vad is not None:
-            with span("xv.extract.select_voiced"):
-                out = F.select_voiced_frames(out, vad)
-        return out
+    with span("xv.extract.preprocess"), span("xv.extract.cmvn"):
+        dest, rows = (None, None) if vad is None else F.voiced_map(vad)
+        if isinstance(feats, torch.Tensor):
+            x = feats.to(dev)
+            if dest is not None:
+                [dest] = _upload(dev, dest)
+        elif dest is None:
+            [x] = _upload(dev, feats)
+        else:
+            x, dest = _upload(dev, feats, dest)
+        return F.sliding_cmvn(x, window=cmvn_window, dest=dest,
+                              rows=rows).to(torch.float32)
 
 
 class XvectorExtractor:
@@ -110,8 +150,10 @@ class XvectorExtractor:
     with ``use_fused``, folded for K1 once, here: weights changed after
     construction are not seen by the fused stack.  ``counters`` holds
     running totals over every call: ``utterances`` (those with a chunk),
-    ``chunks``, ``batches``, ``frames_real`` (chunk frames) and
-    ``frames_padded`` (the batches' rows times their bucket length)."""
+    ``chunks``, ``batches``, ``frames_real`` (chunk frames),
+    ``frames_padded`` (the batches' rows times their bucket length) and
+    ``host_inputs`` (utterances given as host arrays or on another device,
+    which ``extract_iter`` uploads; :func:`preprocess`'s rows are not)."""
 
     def __init__(self, model_cfg: tdnn.TdnnConfig, params, state,
                  cfg: ExtractorConfig = ExtractorConfig(), device="cuda"):
@@ -128,22 +170,37 @@ class XvectorExtractor:
                                               self.state)
                        if cfg.use_fused else None)
         self.counters = {"utterances": 0, "chunks": 0, "batches": 0,
-                         "frames_real": 0, "frames_padded": 0}
+                         "frames_real": 0, "frames_padded": 0,
+                         "host_inputs": 0}
 
     def _forward(self, x, mask):
         """(B, T, F) features + (B, T) mask on the device → (B, E) f32."""
         return _xvector(self.model_cfg, self.params, self.state, x, mask,
                         self._cd, self.cfg.use_fused, self.folded)
 
-    def _run(self, x: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    def _run(self, x: torch.Tensor, mask: torch.Tensor) -> np.ndarray:
+        """A packed batch on the device → its (B, E) x-vectors on the host:
+        the one wait on the card a batch."""
         args = f"bucket={x.shape[1]} rows={x.shape[0]}" if tracing() else None
         with span("xv.extract.run", args), torch.inference_mode():
-            with span("xv.extract.upload"):
-                xd = torch.from_numpy(x).to(self.device)
-                md = torch.from_numpy(mask).to(self.device)
-            out = self._forward(xd, md)
+            out = self._forward(x, mask)
             with span("xv.extract.download"):
                 return out.to(torch.float32).cpu().numpy()
+
+    def _rows(self, feats) -> torch.Tensor:
+        """An utterance's (T, F) features as an f32 tensor on the device:
+        a tensor there as it is, anything else uploaded once."""
+        dev = self.device
+        if isinstance(feats, torch.Tensor):
+            # a device without an index takes a tensor on any of its kind
+            if feats.device.type == dev.type and dev.index in (
+                    None, feats.device.index):
+                return feats.to(torch.float32)
+            feats = feats.detach().to("cpu", torch.float32).numpy()
+        self.counters["host_inputs"] += 1
+        with span("xv.extract.upload"):
+            [x] = _upload(dev, feats)
+        return x
 
     # -- chunking ---------------------------------------------------------
     def _chunks(self, num_rows: int) -> List[Tuple[int, int]]:
@@ -166,18 +223,22 @@ class XvectorExtractor:
         return self.cfg.buckets[-1]
 
     # -- batched streaming extraction -------------------------------------
-    def extract_iter(self, stream: Iterable[Tuple[str, np.ndarray]]
+    def extract_iter(self, stream: Iterable[Tuple[str, object]]
                      ) -> Iterator[Tuple[str, np.ndarray]]:
         """Consume (utt, feats (T, F)) pairs; yield (utt, xvector) in
         completion order.  Batches chunks across utterances per length
-        bucket; utterances shorter than min_chunk are skipped."""
+        bucket; utterances shorter than min_chunk are skipped.  Features
+        on the device (:func:`preprocess`'s) are chunked as views and
+        padded into batches there; host arrays go up once an utterance
+        (``counters["host_inputs"]``)."""
         feat_dim = self.model_cfg.feat_dim
+        dev = self.device
         counts = self.counters
         pend_sum: Dict[str, np.ndarray] = {}
         pend_weight: Dict[str, float] = {}
         pend_left: Dict[str, int] = {}
         order: List[str] = []
-        buckets: Dict[int, List[Tuple[str, np.ndarray, int]]] = {}
+        buckets: Dict[int, List[Tuple[str, torch.Tensor, int]]] = {}
         # full (x, mask, items) batches awaiting dispatch, per bucket
         staged: Dict[int, List] = {}
 
@@ -188,13 +249,18 @@ class XvectorExtractor:
                 pend_left[utt] -= 1
 
         def pack(b: int, items):
+            """The zero-padded (n, b, F) f32 batch and its (n, b) mask, on
+            the device: one copy a chunk, the mask from the lengths."""
             with span("xv.extract.pack"):
                 n = len(items)
-                x = np.zeros((n, b, feat_dim), np.float32)
-                mask = np.zeros((n, b), np.float32)
+                x = torch.zeros((n, b, feat_dim), dtype=torch.float32,
+                                device=dev)
                 for i, (_, rows, ln) in enumerate(items):
                     x[i, :ln] = rows
-                    mask[i, :ln] = 1.0
+                [lens] = _upload(dev, np.array([ln for *_, ln in items],
+                                               np.int32))
+                mask = (torch.arange(b, device=dev)[None]
+                        < lens[:, None]).to(torch.float32)
                 counts["batches"] += 1
                 counts["frames_padded"] += n * b
                 return x, mask
@@ -224,10 +290,10 @@ class XvectorExtractor:
                             / pend_weight.pop(utt)).astype(np.float32)
 
         for utt, feats in stream:
-            feats = np.asarray(feats, np.float32)
-            chunks = self._chunks(feats.shape[0])
+            chunks = self._chunks(len(feats))
             if not chunks:
                 continue
+            feats = self._rows(feats)
             counts["utterances"] += 1
             counts["chunks"] += len(chunks)
             counts["frames_real"] += sum(ln for _, ln in chunks)
@@ -417,8 +483,7 @@ class WaveExtractor:
             w = torch.from_numpy(wave).to(self.device)
             feats = F.mfcc(w, self.mfcc_cfg, self._gen)
             vad = F.energy_vad(feats, self.vad_cfg)
-            feats = preprocess(feats.cpu().numpy(),
-                               cmvn_window=self.cfg.cmvn_window,
+            feats = preprocess(feats, cmvn_window=self.cfg.cmvn_window,
                                vad=vad.cpu().numpy(), device=self.device)
             yield from self._long.extract_iter([(utt, feats)])
 

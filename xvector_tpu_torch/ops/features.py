@@ -10,8 +10,10 @@ reflection framing, raw log-energy C0, orthonormal DCT-II, lifter 22.
 
 Every function works on the device of the tensors it is given.
 :func:`sliding_cmvn` launches one hand-written kernel on a CUDA tensor
-(``csrc/cmvn_sm90.cu``; :data:`cmvn_launches` counts them) and runs its
-plain PyTorch version, :func:`sliding_cmvn_reference`, on a CPU tensor.
+(``csrc/cmvn_sm90.cu``; :data:`cmvn_launches` counts them), which with a
+destination map (:func:`voiced_map`) selects the voiced frames in the same
+launch, and runs its plain PyTorch version, :func:`sliding_cmvn_reference`
+then the selection, on a CPU tensor.
 The spectral products (the folded DFT, the mel bank, the DCT) run in float64,
 where TF32 cannot reach them whatever ``torch.backends.cuda.matmul.
 allow_tf32`` says, and the cepstra come back as float32.  Dither draws
@@ -35,7 +37,8 @@ from . import _build
 __all__ = ["MfccConfig", "VadConfig", "mfcc", "mfcc_batch", "num_frames",
            "energy_vad", "energy_vad_batch", "sliding_cmvn",
            "sliding_cmvn_reference", "sliding_cmvn_batch",
-           "select_voiced_frames", "compact_voiced", "cmvn_launches"]
+           "select_voiced_frames", "voiced_map", "compact_voiced",
+           "cmvn_launches"]
 
 _F64 = torch.float64
 _EPS = float(np.finfo(np.float32).eps)
@@ -368,7 +371,9 @@ def _window_sums(v: torch.Tensor, win: int) -> torch.Tensor:
 
 
 def sliding_cmvn(feats: torch.Tensor, window: int = 300, center: bool = True,
-                 normalize_variance: bool = False) -> torch.Tensor:
+                 normalize_variance: bool = False,
+                 dest: Optional[torch.Tensor] = None,
+                 rows: Optional[int] = None) -> torch.Tensor:
     """Subtract a sliding-window mean from each frame of (T, D) features
     (``apply-cmvn-sliding``).
 
@@ -377,14 +382,29 @@ def sliding_cmvn(feats: torch.Tensor, window: int = 300, center: bool = True,
     window keeps ``min(T, window)`` frames at the edges — near the
     boundaries the window slides rather than shrinks.
 
+    With ``dest``, an int32 (T,) tensor on the features' device that gives
+    each frame's row of a (``rows``, D) output, or −1 to drop the frame
+    (:func:`voiced_map` makes it from a VAD), the frames are selected in
+    the same call (``select-voiced-frames``); the windows still span every
+    frame.  Each row must be some frame's.
+
     On a CUDA tensor one kernel computes it (``csrc/cmvn_sm90.cu``: f64
     window sums, then the same f32 steps), or the call raises; it takes the
     features as contiguous f32 and returns ``feats.dtype``.  On a CPU
-    tensor :func:`sliding_cmvn_reference` runs."""
+    tensor :func:`sliding_cmvn_reference` runs, then the boolean
+    selection."""
+    if dest is not None and rows is None:
+        raise ValueError("sliding_cmvn with a destination map takes rows")
     if feats.is_cuda:
         return _sliding_cmvn_kernel(feats, window, center,
-                                    normalize_variance)
-    return sliding_cmvn_reference(feats, window, center, normalize_variance)
+                                    normalize_variance, dest, rows)
+    out = sliding_cmvn_reference(feats, window, center, normalize_variance)
+    if dest is None:
+        return out
+    keep = dest >= 0
+    picked = out.new_empty((rows,) + tuple(out.shape[1:]))
+    picked[dest[keep].long()] = out[keep]
+    return picked
 
 
 def sliding_cmvn_reference(feats: torch.Tensor, window: int = 300,
@@ -412,34 +432,46 @@ def _cmvn_lib() -> ctypes.CDLL:
     lib = _build.load(CMVN_SOURCE)
     if lib.sliding_cmvn_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sliding_cmvn_launch.argtypes = [p, p, i, i, i, i, i, p]
+        lib.sliding_cmvn_launch.argtypes = [p, p, p, i, i, i, i, i, i, p]
         lib.sliding_cmvn_launch.restype = ctypes.c_int
     return lib
 
 
-def _sliding_cmvn_kernel(feats, window, center, normalize_variance):
-    """:func:`sliding_cmvn` of a CUDA tensor: one launch of the kernel.
-    The C function refuses, and this raises, a window whose rows overflow
-    a block's shared memory (beyond ~58,000 frames)."""
+def _sliding_cmvn_kernel(feats, window, center, normalize_variance,
+                         dest=None, rows=None):
+    """:func:`sliding_cmvn` of a CUDA tensor: one launch of the kernel,
+    none when no frame is kept.  The C function refuses, and this raises, a
+    window whose rows overflow a block's shared memory (beyond ~58,000
+    frames)."""
     global cmvn_launches
     if feats.dim() != 2:
         raise ValueError(f"sliding_cmvn takes (T, D) features, got shape "
                          f"{tuple(feats.shape)}")
     t, d = feats.shape
-    if t == 0 or d == 0:
-        return feats.new_empty(feats.shape)
+    if dest is not None and (dest.shape != (t,) or dest.dtype != torch.int32
+                             or dest.device != feats.device):
+        raise ValueError(f"sliding_cmvn's destination map must be int32 "
+                         f"({t},) on {feats.device}, got {dest.dtype} "
+                         f"{tuple(dest.shape)} on {dest.device}")
+    if rows is not None and rows < 0:
+        raise ValueError(f"sliding_cmvn rows must be >= 0, got {rows}")
+    n = t if dest is None else rows
+    if n == 0 or d == 0:
+        return feats.new_empty((n, d))
     if window < 1:
         raise ValueError(f"sliding_cmvn window must be >= 1, got {window}")
     win = min(window, t)
     off = win // 2 if center else win - 1
     x = feats.to(torch.float32).contiguous()
-    out = torch.empty_like(x)
+    out = x.new_empty((n, d))
     dev = x.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        dest = None if dest is None else dest.contiguous()
         rc = _cmvn_lib().sliding_cmvn_launch(
-            x.data_ptr(), out.data_ptr(), t, d, win, off,
-            int(normalize_variance), stream)
+            x.data_ptr(), None if dest is None else dest.data_ptr(),
+            out.data_ptr(), t, d, win, off, n, int(normalize_variance),
+            stream)
     if rc != 0:
         raise RuntimeError(f"sliding CMVN kernel (T={t}, D={d}, win={win}) "
                            f"failed: cudaError {rc}")
@@ -455,6 +487,16 @@ def select_voiced_frames(feats: np.ndarray, vad: np.ndarray) -> np.ndarray:
     """Host-side ragged compaction (``select-voiced-frames``): keep rows
     where vad > 0.5."""
     return np.asarray(feats)[np.asarray(vad) > 0.5]
+
+
+def voiced_map(vad: np.ndarray):
+    """:func:`sliding_cmvn`'s destination map of a host VAD: int32 (T,),
+    frame t's row among the voiced frames (vad > 0.5) in order, −1 for an
+    unvoiced one; and the number of voiced frames, the output's rows."""
+    keep = np.asarray(vad).reshape(-1) > 0.5
+    count = np.cumsum(keep, dtype=np.int32)
+    dest = np.where(keep, count - 1, -1).astype(np.int32)
+    return dest, int(count[-1]) if count.size else 0
 
 
 # ---------------------------------------------------------------------------
